@@ -1,0 +1,334 @@
+"""Chip smoke of the PyTorch/CUDA port (flake16_framework_tpu_torch) on one
+NVIDIA H100: builds the CUDA kernels from ``csrc/``, holds each against its
+plain PyTorch version at the main path's shapes, drives the ``scores`` verb
+at full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
+10 folds, 64 bins, depth 48) on two configs, and checks what comes out.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+device and exits non-zero without one. The last line of its output is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels with
+their launches on the main path, times and bounds. Details also go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+import io
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+
+MAIN_CONFIGS = (
+    ("NOD", "Flake16", "Scaling", "SMOTE", "Random Forest"),
+    ("OD", "Flake16", "PCA", "SMOTE Tomek", "Extra Trees"),
+)
+N_TESTS, N_PROJECTS, N_BINS, NODE_BATCH = 4000, 26, 64, 128
+
+
+def _cuda_ms(fn, reps, warm=2):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_hist_kernel():
+    """K1 against its plain version at the main path's shapes: one fold's
+    100 trees, N = cap = 8000, F = 16, B = 64, W = 128, integer bootstrap
+    weights. Bitwise equality is required."""
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+
+    n_tree, n, n_feat = 100, 2 * N_TESTS, 16
+    rs = np.random.RandomState(0)
+    w = rs.poisson(1.0, size=(n_tree, n)).astype(np.float32)
+    w[:, int(0.9 * n):] = 0.0                      # invalid capacity slots
+    y = (rs.rand(n) < 0.5).astype(np.float32)
+    rel = rs.randint(-1, NODE_BATCH + NODE_BATCH // 4,
+                     size=(n_tree, n)).astype(np.int32)
+    bins = rs.randint(0, N_BINS, size=(n_feat, n)).astype(np.uint8)
+    dev = torch.device("cuda")
+    rel_t = torch.from_numpy(rel).to(dev)
+    w_t = torch.from_numpy(w).to(dev)
+    wy_t = w_t * torch.from_numpy(y).to(dev)
+    bin_t = torch.from_numpy(bins).to(dev)
+    args = (rel_t, w_t, wy_t, bin_t, NODE_BATCH, N_BINS)
+
+    cw, cwy = cum_hists(*args)
+    pw, pwy = cum_hists_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((cw - pw).abs().max()), float((cwy - pwy).abs().max()))
+    bitwise = torch.equal(cw, pw) and torch.equal(cwy, pwy)
+    if not bitwise:
+        raise AssertionError(f"hist_cumsum differs from cum_hists_plain: "
+                             f"max abs err {err}")
+
+    ms = _cuda_ms(lambda: cum_hists(*args), reps=20)
+    plain_ms = _cuda_ms(lambda: cum_hists_plain(*args), reps=3, warm=1)
+    # Library yardstick: the one-hot contraction as one einsum per class
+    # on prebuilt f32 one-hots, plus the bin cumsum.
+    member = (rel_t.long()[..., None] == torch.arange(NODE_BATCH, device=dev))
+    ohw = member * w_t[..., None]
+    ohwy = member * wy_t[..., None]
+    ohfb = torch.nn.functional.one_hot(bin_t.long(), N_BINS).float()
+
+    def library():
+        return (torch.einsum("tnw,fnb->tfwb", ohw, ohfb).cumsum(-1),
+                torch.einsum("tnw,fnb->tfwb", ohwy, ohfb).cumsum(-1))
+
+    library_ms = _cuda_ms(library, reps=3, warm=1)
+    del member, ohw, ohwy, ohfb
+
+    in_window = int(((rel_t >= 0) & (rel_t < NODE_BATCH) & (w_t > 0)).sum())
+    out_elems = n_tree * n_feat * NODE_BATCH * N_BINS
+    nbytes = n_tree * n * 12 + n_feat * n + 2 * out_elems * 4
+    ops = 2 * n_feat * in_window + 2 * out_elems
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {
+        "name": "hist_cumsum", "route": "cuda",
+        "source": "flake16_framework_tpu_torch/csrc/hist_cumsum.cu",
+        "replaces": "flake16_framework_tpu/ops/trees.py:723",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "shape": {"trees": n_tree, "n": n, "features": n_feat,
+                  "window": NODE_BATCH, "bins": N_BINS},
+    }
+
+
+def check_small_reference():
+    """The card path against the port's CPU path on a small input: the
+    same resampled data and keys grow bitwise-equal forests (the CPU path
+    is held bitwise against the JAX package by the test suite), and a
+    small sweep gives equal counts."""
+    from flake16_framework_tpu_torch import rng
+    from flake16_framework_tpu_torch.ops import trees
+    from flake16_framework_tpu_torch.pipeline import write_scores
+    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+
+    rs = np.random.RandomState(1)
+    x = rs.randn(600, 16).astype(np.float32)
+    y = (x[:, 0] - x[:, 3] + 0.5 * rs.randn(600)) > 1.0
+    w = (rs.rand(600) > 0.2).astype(np.float32)
+    out = {}
+    for name, boot, rand in (("rf", True, False), ("et", False, True)):
+        forests = []
+        for dev in ("cpu", "cuda"):
+            forests.append(trees.fit_forest_hist(
+                torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+                torch.from_numpy(w).to(dev), rng.prng_key(5, dev),
+                n_trees=8, bootstrap=boot, random_splits=rand,
+                sqrt_features=True, max_depth=12))
+        for fld in trees.Forest._fields[:-1]:
+            a, b = getattr(forests[0], fld), getattr(forests[1], fld).cpu()
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} forest field {fld}: card "
+                                     f"and CPU differ")
+        out[name + "_forest_bitwise"] = True
+
+    with tempfile.TemporaryDirectory() as d:
+        tj = os.path.join(d, "tests.json")
+        make_tests_json(tj, n_tests=400, n_projects=6, seed=2)
+        cfgs = [("NOD", "Flake16", "None", "None", "Random Forest"),
+                ("OD", "FlakeFlagger", "Scaling", "ENN", "Extra Trees")]
+        kw = dict(max_depth=12, configs=cfgs, progress_out=io.StringIO(),
+                  tree_overrides={"Random Forest": 8, "Extra Trees": 8})
+        cpu = write_scores(tj, os.path.join(d, "c.pkl"), device="cpu", **kw)
+        gpu = write_scores(tj, os.path.join(d, "g.pkl"), **kw)
+    for k in cfgs:
+        if cpu[k][2:] != gpu[k][2:]:
+            raise AssertionError(f"{k}: card and CPU scores differ: "
+                                 f"{gpu[k][3]} vs {cpu[k][3]}")
+    out["small_scores_equal"] = len(cfgs)
+    return out
+
+
+def _require(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def _check_schema(scores, configs, n_projects):
+    """The reference ``scores.pkl`` value schema, with consistent counts."""
+    for k in configs:
+        v = scores[k]
+        _require(isinstance(v, list) and len(v) == 4, f"{k}: value {v!r}")
+        t_train, t_test, per_proj, total = v
+        _require(t_train > 0 and t_test >= 0, f"{k}: times {t_train} {t_test}")
+        _require(len(per_proj) == n_projects, f"{k}: {len(per_proj)} projects")
+        for row in per_proj.values():
+            _require(len(row) == 6 and all(isinstance(c, int)
+                                           for c in row[:3]), f"{k}: {row}")
+        _require(len(total) == 6 and total[:3] == [
+            sum(r[i] for r in per_proj.values()) for i in range(3)],
+            f"{k}: total {total}")
+        _require(sum(total[:3]) <= N_TESTS, f"{k}: total {total}")
+        f1 = total[5]
+        _require(f1 is None or 0.0 <= f1 <= 1.0, f"{k}: F1 {f1}")
+
+
+def run_main_path(tmp):
+    """The scores verb at full width on the two configs, with K1's launch
+    count read around exactly this run."""
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
+    from flake16_framework_tpu_torch.pipeline import write_scores
+    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+
+    tj = os.path.join(tmp, "tests.json")
+    make_tests_json(tj, n_tests=N_TESTS, n_projects=N_PROJECTS, seed=0)
+    walls = {}
+    last = [time.time()]
+
+    class Progress(io.StringIO):
+        def write(self, s):
+            now = time.time()
+            walls[len(walls)] = now - last[0]
+            last[0] = now
+            return super().write(s)
+
+    out_file = os.path.join(tmp, "scores.pkl")
+    torch.cuda.synchronize()
+    cum_hists.launches = 0
+    last[0] = time.time()
+    scores = write_scores(tj, out_file, max_depth=48,
+                          configs=list(MAIN_CONFIGS),
+                          progress_out=Progress())
+    torch.cuda.synchronize()
+    launches = cum_hists.launches
+    if launches == 0:
+        raise AssertionError("the main path never launched hist_cumsum")
+    with open(out_file, "rb") as fd:
+        on_disk = pickle.load(fd)
+    _require(set(on_disk) == set(MAIN_CONFIGS), f"keys {sorted(on_disk)}")
+    _check_schema(on_disk, MAIN_CONFIGS, N_PROJECTS)
+    res = []
+    for i, k in enumerate(MAIN_CONFIGS):
+        res.append({"config": "/".join(k), "wall_s": walls[i],
+                    "t_train_per_fold_s": scores[k][0],
+                    "t_test_per_fold_s": scores[k][1],
+                    "counts_fp_fn_tp": scores[k][3][:3],
+                    "f1": scores[k][3][5]})
+    return launches, res, tj
+
+
+def profile_config(tests_file, config, wall_s):
+    """Device time by kernel over one more full-width run of ``config``,
+    outside the counted main path. Kernel times are the card's own; the
+    profiler slows the host, so shares of the wall use ``wall_s``, the
+    config's unprofiled ``run_config`` wall (fit + predict over its 10
+    folds) from the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run_config(config)
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.key, e.count))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    hist_ms = sum(k[0] for k in kernels if "hist_cumsum" in k[1])
+    hist_n = sum(k[2] for k in kernels if "hist_cumsum" in k[1])
+    return {
+        "config": "/".join(config), "wall_s_unprofiled": wall_s,
+        "kernel_launches": sum(k[2] for k in kernels),
+        "device_busy_ms": busy_ms, "hist_cumsum_ms": hist_ms,
+        "hist_cumsum_launches": hist_n,
+        "hist_share_of_device": hist_ms / busy_ms if busy_ms else None,
+        "device_idle_share": 1.0 - busy_ms / 1e3 / wall_s,
+        "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                        for ms, n, c in kernels[:15]],
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from flake16_framework_tpu_torch.kernels import build
+
+    t0 = time.time()
+    log = build.build("hist_cumsum")
+    build.load("hist_cumsum")
+    build_s = time.time() - t0
+    print(f"build: {build_s:.2f} s for hist_cumsum", flush=True)
+    print(f"nvcc hist_cumsum: {log.strip()}", flush=True)
+
+    k1 = check_hist_kernel()
+    print(f"hist_cumsum bitwise == plain; kernel {k1['ms']:.4f} ms, plain "
+          f"{k1['plain_ms']:.3f} ms, library {k1['library_ms']:.3f} ms, "
+          f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})", flush=True)
+    small = check_small_reference()
+    print(f"small reference: {small}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, configs, tj = run_main_path(tmp)
+        for c in configs:
+            print(f"config {c['config']}: wall {c['wall_s']:.2f} s, "
+                  f"F1 {c['f1']}, (FP, FN, TP) {c['counts_fp_fn_tp']}",
+                  flush=True)
+        print(f"hist_cumsum launches on the main path: {launches}",
+              flush=True)
+        run_s = 10 * (configs[0]["t_train_per_fold_s"]
+                      + configs[0]["t_test_per_fold_s"])
+        prof = profile_config(tj, MAIN_CONFIGS[0], run_s)
+    print(f"profile: {json.dumps(prof)}", flush=True)
+
+    k1["launches"] = launches
+    kernels = {"kernels": [{k: k1[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]}
+    report = {"nvidia_smi": smi, "build_s": build_s, "kernel": k1,
+              "small_reference": small, "main_path": configs,
+              "profile": prof, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fd:
+        json.dump(report, fd, indent=1)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles, on its own, to a shared library with a
+plain C interface for ``sm_90a`` (Hopper), which ``ctypes`` loads. The
+library's file name carries a hash of its source, so an edited source
+rebuilds and an unchanged one is reused. Build outputs go to ``_build/``
+inside the package directory (ignored by git).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded = {}
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    nvcc = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return nvcc
+
+
+def _lib_path(name):
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name):
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    compiler's output (register and shared-memory use), empty when the
+    library was reused."""
+    out = _lib_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def load(name):
+    """The ctypes handle of kernel library ``name``, built if needed."""
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _loaded[name]

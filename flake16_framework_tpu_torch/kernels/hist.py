@@ -1,0 +1,94 @@
+"""The cumulative class histograms of one BFS step of the tree grower:
+the CUDA kernel ``csrc/hist_cumsum.cu`` and its plain PyTorch version.
+
+For each tree t, feature f, window node w and bin b::
+
+    cw[t, f, w, b]  = sum_{b' <= b} sum_n [rel[t,n] == w] w[t,n] [bin[f,n] == b']
+    cwy[t, f, w, b] = the same with wy
+
+``rel`` [T, N] int32 is each sample's node id relative to the window start
+(outside [0, W) means "not in the window"), ``w``/``wy`` [T, N] f32 the
+per-tree weights and weights times label, ``bin_t`` [F, N] uint8 the bin
+indices, feature-major so a feature's bins are contiguous. Outputs are f32
+[T, F, W, B] x 2.
+
+``cum_hists`` launches the kernel for CUDA tensors and takes the plain
+version only for CPU tensors; it never falls back.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from flake16_framework_tpu_torch.kernels import build
+
+# Shared memory a block may use on Hopper (bytes).
+_SMEM_LIMIT = 232448
+
+
+def cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins):
+    """The plain version: one-hots contracted over samples in f32
+    (``torch.einsum`` on bf16 would return bf16 and round counts above
+    256), then a cumsum over bins."""
+    rel = rel.to(torch.int64)
+    iota = torch.arange(n_nodes, device=rel.device)
+    member = (rel[..., None] == iota).to(w.dtype)               # [T, N, W]
+    ohfb = torch.nn.functional.one_hot(bin_t.to(torch.int64),
+                                       n_bins).to(w.dtype)   # [F, N, B]
+    cw = torch.einsum("tnw,fnb->tfwb", member * w[..., None], ohfb)
+    cwy = torch.einsum("tnw,fnb->tfwb", member * wy[..., None], ohfb)
+    return torch.cumsum(cw, -1), torch.cumsum(cwy, -1)
+
+
+def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
+    """(cw, cwy) [T, F, W, B] f32; see the module docstring. CPU tensors
+    go to ``cum_hists_plain``; CUDA tensors launch the kernel (counted in
+    ``cum_hists.launches``) or raise."""
+    if rel.device.type == "cpu":
+        return cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins)
+    if rel.device.type != "cuda":
+        raise ValueError(f"cum_hists: unsupported device {rel.device}")
+    n_tree, n = rel.shape
+    n_feat = bin_t.shape[0]
+    for name, t, dtype, shape in (("rel", rel, torch.int32, (n_tree, n)),
+                                  ("w", w, torch.float32, (n_tree, n)),
+                                  ("wy", wy, torch.float32, (n_tree, n)),
+                                  ("bin_t", bin_t, torch.uint8, (n_feat, n))):
+        if t.device != rel.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"cum_hists: {name} must be a contiguous {dtype} {shape} "
+                f"tensor on {rel.device}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device} (contiguous={t.is_contiguous()})")
+    if not 1 <= n_bins <= 256:
+        raise ValueError(f"cum_hists: n_bins must be in [1, 256], got {n_bins}")
+    if 2 * n_nodes * (n_bins + 1) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"cum_hists: a {n_nodes} x {n_bins} window exceeds "
+                         f"shared memory")
+    if n_tree > 65535:
+        raise ValueError(f"cum_hists: at most 65535 trees a launch, got {n_tree}")
+    cw = torch.empty((n_tree, n_feat, n_nodes, n_bins), dtype=torch.float32,
+                     device=rel.device)
+    cwy = torch.empty_like(cw)
+    with torch.cuda.device(rel.device):
+        err = _launcher()(
+            rel.data_ptr(), w.data_ptr(), wy.data_ptr(), bin_t.data_ptr(),
+            cw.data_ptr(), cwy.data_ptr(), n_tree, n, n_feat, n_nodes, n_bins,
+            rel.device.index, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hist_cumsum launch failed: CUDA error {err}")
+    cum_hists.launches += 1
+    return cw, cwy
+
+
+cum_hists.launches = 0
+
+
+@functools.cache
+def _launcher():
+    """The C entry point, loaded (and built) once with its signature."""
+    fn = build.load("hist_cumsum").hist_cumsum_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
