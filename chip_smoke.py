@@ -1,8 +1,9 @@
 """Chip smoke of the PyTorch/CUDA port (flake16_framework_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from ``csrc/``, holds each against its
-plain PyTorch version at the main path's shapes, drives the ``scores`` verb
+plain PyTorch version at the main path's shapes, drives the two main paths
 at full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
-10 folds, 64 bins, depth 48) on two configs, and checks what comes out.
+depth 48) and checks what comes out: the ``scores`` verb (10 folds, 64
+bins) on two configs, and the ``shap`` verb on both paper configs.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
@@ -25,6 +26,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+
+SHAP_TOL = (1e-5, 1e-7)        # |a - b| <= rel * max|b| + abs
+LOCAL_ACCURACY_TOL = 1e-5
 
 MAIN_CONFIGS = (
     ("NOD", "Flake16", "Scaling", "SMOTE", "Random Forest"),
@@ -114,6 +118,92 @@ def check_hist_kernel():
     }
 
 
+def unit_ops(u, n_samples):
+    """f32 operations the unit needs for work items of live counts u, each
+    against ``n_samples`` samples, counting every add, multiply, compare
+    and division as one: per (work item, sample) 3u for the one
+    fractions, 4u^2 + 13u for EXTEND (step k updates positions 0..k+1),
+    5u^2 for UNWIND (u positions a slot, at the cheaper o = 0 branch) and
+    5u for the contributions: 9u^2 + 21u."""
+    u = u.double()
+    return float((9.0 * u * u + 21.0 * u).sum()) * n_samples
+
+
+def check_unit_kernel(tests_file):
+    """K2 against its plain version on the real buckets of both full-width
+    SHAP forests (``SHAP_CONFIGS``), every bucket whole at S = 4000: the
+    main path's shapes. The plain version walks a bucket in row batches
+    (``PLAIN_ROWS``) and sums them. Two kernel runs must be bitwise equal.
+    ``ms`` and ``plain_ms`` are timed on the same inputs."""
+    from flake16_framework_tpu_torch.config import SHAP_CONFIGS
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+        unit_shap, unit_shap_plain,
+    )
+    from flake16_framework_tpu_torch.ops.treeshap import bucket_inputs
+    from flake16_framework_tpu_torch.pipeline import fit_shap_forest
+
+    feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
+    buckets = []
+    for keys in SHAP_CONFIGS:
+        xp, forest = fit_shap_forest(keys, feats, labels)
+        x = xp.contiguous()
+        for cap, args in bucket_inputs(forest, x.shape[1]):
+            got = unit_shap(*args, x)
+            again = unit_shap(*args, x)
+            want = unit_shap_plain(*args, x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"treeshap_unit cap {cap}: two runs "
+                                     f"differ")
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"treeshap_unit cap {cap}: not finite")
+            err = float((got - want).abs().max())
+            ref = float(want.abs().max())
+            if err > SHAP_TOL[0] * ref + SHAP_TOL[1]:
+                raise AssertionError(f"treeshap_unit {keys} cap {cap} "
+                                     f"differs from unit_shap_plain: {err} "
+                                     f"(max {ref})")
+            del got, again, want
+            u = args[4]
+            buckets.append({
+                "config": "/".join(keys), "cap": cap,
+                "paths": args[0].shape[0],
+                "mean_u": float(u.double().mean()),
+                "max_abs_err": err, "max_abs_plain": ref,
+                "ms": _cuda_ms(lambda: unit_shap(*args, x), reps=5, warm=1),
+                "plain_ms": _cuda_ms(lambda: unit_shap_plain(*args, x),
+                                     reps=1, warm=0),
+                "ops": unit_ops(u, x.shape[0]),
+                "bytes": sum(a.numel() * 4 for a in args)
+                + 2 * x.numel() * 4,
+            })
+    ops_ms = sum(b["ops"] for b in buckets) / F32_OPS_PER_S * 1e3
+    bytes_ms = sum(b["bytes"] for b in buckets) / HBM_BYTES_PER_S * 1e3
+    per_config = {}
+    for b in buckets:
+        c = per_config.setdefault(b["config"], {"ms": 0.0, "plain_ms": 0.0,
+                                                "ops": 0.0, "buckets": 0})
+        c["ms"] += b["ms"]
+        c["plain_ms"] += b["plain_ms"]
+        c["ops"] += b["ops"]
+        c["buckets"] += 1
+    for c in per_config.values():
+        c["bound_ms"] = c.pop("ops") / F32_OPS_PER_S * 1e3
+    return {
+        "name": "treeshap_unit", "route": "cuda",
+        "source": "flake16_framework_tpu_torch/csrc/treeshap_unit.cu",
+        "replaces": "flake16_framework_tpu/ops/treeshap.py:543",
+        "max_abs_err": max(b["max_abs_err"] for b in buckets),
+        "ms": sum(b["ms"] for b in buckets),
+        "plain_ms": sum(b["plain_ms"] for b in buckets),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "samples": N_TESTS, "per_config": per_config, "buckets": buckets,
+    }
+
+
 def check_small_reference():
     """The card path against the port's CPU path on a small input: the
     same resampled data and keys grow bitwise-equal forests (the CPU path
@@ -121,7 +211,7 @@ def check_small_reference():
     small sweep gives equal counts."""
     from flake16_framework_tpu_torch import rng
     from flake16_framework_tpu_torch.ops import trees
-    from flake16_framework_tpu_torch.pipeline import write_scores
+    from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
     from flake16_framework_tpu_torch.utils.synth import make_tests_json
 
     rs = np.random.RandomState(1)
@@ -158,6 +248,23 @@ def check_small_reference():
             raise AssertionError(f"{k}: card and CPU scores differ: "
                                  f"{gpu[k][3]} vs {cpu[k][3]}")
     out["small_scores_equal"] = len(cfgs)
+
+    with tempfile.TemporaryDirectory() as d:
+        tj = os.path.join(d, "tests.json")
+        make_tests_json(tj, n_tests=400, n_projects=6, seed=2)
+        kw = dict(max_depth=12,
+                  tree_overrides={"Random Forest": 8, "Extra Trees": 8})
+        cpu = write_shap(tj, os.path.join(d, "c.pkl"), device="cpu", **kw)
+        gpu = write_shap(tj, os.path.join(d, "g.pkl"), **kw)
+    errs = []
+    for c, g in zip(cpu, gpu):
+        err = float(np.abs(g["values"] - c["values"]).max())
+        ref = float(np.abs(c["values"]).max())
+        if err > SHAP_TOL[0] * ref + SHAP_TOL[1]:
+            raise AssertionError(f"small write_shap: card and CPU differ "
+                                 f"by {err} (max {ref})")
+        errs.append(err)
+    out["small_shap_max_abs_err"] = errs
     return out
 
 
@@ -185,15 +292,29 @@ def _check_schema(scores, configs, n_projects):
         _require(f1 is None or 0.0 <= f1 <= 1.0, f"{k}: F1 {f1}")
 
 
-def run_main_path(tmp):
-    """The scores verb at full width on the two configs, with K1's launch
-    count read around exactly this run."""
+def _reset_counts():
     from flake16_framework_tpu_torch.kernels.hist import cum_hists
-    from flake16_framework_tpu_torch.pipeline import write_scores
-    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import unit_shap
 
-    tj = os.path.join(tmp, "tests.json")
-    make_tests_json(tj, n_tests=N_TESTS, n_projects=N_PROJECTS, seed=0)
+    torch.cuda.synchronize()
+    cum_hists.launches = 0
+    unit_shap.launches = 0
+
+
+def _read_counts():
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import unit_shap
+
+    torch.cuda.synchronize()
+    return {"hist_cumsum": cum_hists.launches,
+            "treeshap_unit": unit_shap.launches}
+
+
+def run_scores_path(tmp, tj):
+    """The scores verb at full width on the two configs, with the kernels'
+    launch counts read around exactly this run."""
+    from flake16_framework_tpu_torch.pipeline import write_scores
+
     walls = {}
     last = [time.time()]
 
@@ -205,16 +326,14 @@ def run_main_path(tmp):
             return super().write(s)
 
     out_file = os.path.join(tmp, "scores.pkl")
-    torch.cuda.synchronize()
-    cum_hists.launches = 0
+    _reset_counts()
     last[0] = time.time()
     scores = write_scores(tj, out_file, max_depth=48,
                           configs=list(MAIN_CONFIGS),
                           progress_out=Progress())
-    torch.cuda.synchronize()
-    launches = cum_hists.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched hist_cumsum")
+    launches = _read_counts()
+    if launches["hist_cumsum"] == 0:
+        raise AssertionError("the scores path never launched hist_cumsum")
     with open(out_file, "rb") as fd:
         on_disk = pickle.load(fd)
     _require(set(on_disk) == set(MAIN_CONFIGS), f"keys {sorted(on_disk)}")
@@ -226,7 +345,48 @@ def run_main_path(tmp):
                     "t_test_per_fold_s": scores[k][1],
                     "counts_fp_fn_tp": scores[k][3][:3],
                     "f1": scores[k][3][5]})
-    return launches, res, tj
+    return launches, res
+
+
+def run_shap_path(tmp, tj):
+    """The shap verb at full width on both paper configs, with the
+    kernels' launch counts read around exactly this run. Checks the
+    ``shap.pkl`` schema and local accuracy for every sample:
+    |sum_f phi_f - (p0(x) - E[p0])| <= LOCAL_ACCURACY_TOL."""
+    from flake16_framework_tpu_torch.config import SHAP_CONFIGS
+    from flake16_framework_tpu_torch.ops.trees import predict_proba
+    from flake16_framework_tpu_torch.ops.treeshap import expected_p0
+    from flake16_framework_tpu_torch.pipeline import write_shap
+
+    out_file = os.path.join(tmp, "shap.pkl")
+    _reset_counts()
+    t0 = time.time()
+    results = write_shap(tj, out_file, max_depth=48)
+    wall = time.time() - t0
+    launches = _read_counts()
+    if launches["treeshap_unit"] == 0:
+        raise AssertionError("the shap path never launched treeshap_unit")
+    with open(out_file, "rb") as fd:
+        on_disk = pickle.load(fd)
+    _require(isinstance(on_disk, list) and len(on_disk) == 2,
+             f"shap.pkl holds {type(on_disk)}")
+    res = []
+    for keys, values, r in zip(SHAP_CONFIGS, on_disk, results):
+        _require(values.dtype == np.float32
+                 and values.shape == (N_TESTS, 16),
+                 f"{keys}: {values.dtype} {values.shape}")
+        _require(bool(np.isfinite(values).all()), f"{keys}: not finite")
+        p0 = predict_proba(r["forest"], r["x"])[:, 0]
+        gap = (p0 - expected_p0(r["forest"])).cpu().numpy()
+        acc_err = float(np.abs(values.astype(np.float64).sum(1) - gap).max())
+        _require(acc_err <= LOCAL_ACCURACY_TOL,
+                 f"{keys}: local accuracy off by {acc_err}")
+        res.append({"config": "/".join(keys), "fit_s": r["fit_s"],
+                    "explain_s": r["explain_s"],
+                    "local_accuracy_max_err": acc_err,
+                    "max_abs_phi": float(np.abs(values).max()),
+                    "n_nodes_max": int(r["forest"].n_nodes.max())})
+    return launches, res, wall
 
 
 def profile_config(tests_file, config, wall_s):
@@ -284,40 +444,72 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from flake16_framework_tpu_torch.kernels import build
+    from flake16_framework_tpu_torch.utils.synth import make_tests_json
 
+    names = ("hist_cumsum", "treeshap_unit")
     t0 = time.time()
-    log = build.build("hist_cumsum")
-    build.load("hist_cumsum")
+    logs = build.build(*names)
+    for name in names:
+        build.load(name)
     build_s = time.time() - t0
-    print(f"build: {build_s:.2f} s for hist_cumsum", flush=True)
-    print(f"nvcc hist_cumsum: {log.strip()}", flush=True)
+    print(f"build: {build_s:.2f} s for {', '.join(names)} (in parallel)",
+          flush=True)
+    for name in names:
+        print(f"nvcc {name}: {logs[name].strip()}", flush=True)
 
     k1 = check_hist_kernel()
     print(f"hist_cumsum bitwise == plain; kernel {k1['ms']:.4f} ms, plain "
           f"{k1['plain_ms']:.3f} ms, library {k1['library_ms']:.3f} ms, "
           f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})", flush=True)
-    small = check_small_reference()
-    print(f"small reference: {small}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches, configs, tj = run_main_path(tmp)
+        tj = os.path.join(tmp, "tests.json")
+        make_tests_json(tj, n_tests=N_TESTS, n_projects=N_PROJECTS, seed=0)
+        k2 = check_unit_kernel(tj)
+        for b in k2["buckets"]:
+            print(f"treeshap_unit {b['config']} cap {b['cap']}: "
+                  f"{b['paths']} paths x {k2['samples']} samples, err "
+                  f"{b['max_abs_err']:.3g} (max {b['max_abs_plain']:.3g}), "
+                  f"kernel {b['ms']:.4f} ms, plain {b['plain_ms']:.3f} ms",
+                  flush=True)
+        for name, c in k2["per_config"].items():
+            print(f"treeshap_unit {name}: {c['ms']:.4f} ms over "
+                  f"{c['buckets']} buckets, plain {c['plain_ms']:.3f} ms, "
+                  f"bound {c['bound_ms']:.4f} ms", flush=True)
+        print(f"treeshap_unit: {k2['ms']:.4f} ms over both configs, bound "
+              f"{k2['bound_ms']:.4f} ms ({k2['bound_by']})", flush=True)
+        small = check_small_reference()
+        print(f"small reference: {small}", flush=True)
+
+        score_launches, configs = run_scores_path(tmp, tj)
         for c in configs:
             print(f"config {c['config']}: wall {c['wall_s']:.2f} s, "
                   f"F1 {c['f1']}, (FP, FN, TP) {c['counts_fp_fn_tp']}",
                   flush=True)
-        print(f"hist_cumsum launches on the main path: {launches}",
+        print(f"scores path launches: {score_launches}", flush=True)
+        shap_launches, shap_cfgs, shap_wall = run_shap_path(tmp, tj)
+        for c in shap_cfgs:
+            print(f"shap {c['config']}: fit {c['fit_s']:.2f} s, explain "
+                  f"{c['explain_s']:.2f} s, local accuracy max err "
+                  f"{c['local_accuracy_max_err']:.3g}", flush=True)
+        print(f"shap path launches: {shap_launches}, wall {shap_wall:.2f} s",
               flush=True)
         run_s = 10 * (configs[0]["t_train_per_fold_s"]
                       + configs[0]["t_test_per_fold_s"])
         prof = profile_config(tj, MAIN_CONFIGS[0], run_s)
     print(f"profile: {json.dumps(prof)}", flush=True)
 
-    k1["launches"] = launches
-    kernels = {"kernels": [{k: k1[k] for k in (
+    paths = {"scores": score_launches, "shap": shap_launches}
+    k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
+    k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
+    kernels = {"kernels": [{k: kern[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]}
-    report = {"nvidia_smi": smi, "build_s": build_s, "kernel": k1,
-              "small_reference": small, "main_path": configs,
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for kern in (k1, k2)]}
+    report = {"nvidia_smi": smi, "build_s": build_s, "nvcc": logs,
+              "kernels": [k1, k2], "launches_by_path": paths,
+              "small_reference": small, "scores_path": configs,
+              "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
               "profile": prof, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     os.makedirs("chiprun_out", exist_ok=True)

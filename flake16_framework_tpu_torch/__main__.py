@@ -1,8 +1,9 @@
-"""Command line of the port: ``python -m flake16_framework_tpu_torch
-scores`` runs the CV sweep on ``tests.json`` in the working directory and
-writes ``scores.pkl`` there, on the GPU. This slice of the port runs the
-Random Forest and Extra Trees configs; the Decision Tree configs need the
-exact grower, which is not ported yet."""
+"""Command line of the port, on the GPU, reading ``tests.json`` in the
+working directory and writing there: ``python -m
+flake16_framework_tpu_torch scores`` runs the CV sweep into ``scores.pkl``
+(the Random Forest and Extra Trees configs; the Decision Tree configs need
+the exact grower, which is not ported yet), and ``... shap`` writes the
+Tree SHAP values of the two paper configs into ``shap.pkl``."""
 
 import sys
 
@@ -14,12 +15,16 @@ def main(argv=None):
     if not argv:
         raise ValueError("No command given")
     command, *args = argv
-    if command != "scores":
+    if command not in ("scores", "shap"):
         raise ValueError(f"Unrecognized command {command!r} (this slice "
-                         f"of the port has: scores)")
+                         f"of the port has: scores, shap)")
     if args:
-        raise ValueError(f"Unrecognized scores option {args[0]!r}")
-    from flake16_framework_tpu_torch.pipeline import write_scores
+        raise ValueError(f"Unrecognized {command} option {args[0]!r}")
+    from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
+
+    if command == "shap":
+        write_shap()
+        return
 
     write_scores(configs=[k for k in cfg.iter_config_keys()
                           if cfg.MODELS[k[4]].n_trees > 1])

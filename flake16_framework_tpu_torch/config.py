@@ -68,3 +68,10 @@ def resolve_config(config_keys):
         BALANCINGS[bal],
         MODELS[model],
     )
+
+
+# The two configs explained with Tree SHAP, in ``shap.pkl`` order.
+SHAP_CONFIGS = (
+    ("NOD", "Flake16", "Scaling", "SMOTE Tomek", "Extra Trees"),
+    ("OD", "Flake16", "Scaling", "SMOTE", "Random Forest"),
+)

@@ -40,23 +40,34 @@ def _lib_path(name):
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
-    compiler's output (register and shared-memory use), empty when the
-    library was reused."""
-    out = _lib_path(name)
-    if out.exists():
-        return ""
+def build(*names):
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    a source, all started together. Returns {name: the compiler's output
+    (register and shared-memory use)}, empty for a library that was
+    reused. Waits for every compiler before it raises on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    started = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists() or name in started:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in started.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit "
+                          f"{proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name):

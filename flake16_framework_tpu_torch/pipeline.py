@@ -1,16 +1,27 @@
-"""The ``scores`` verb: the 10-fold CV sweep over the grid, written as the
-reference-schema ``scores.pkl`` ({config_keys: [t_train, t_test, scores,
-scores_total]}). A partial ``scores.pkl`` is reloaded and its configs are
-skipped."""
+"""The verbs. ``scores``: the 10-fold CV sweep over the grid, written as
+the reference-schema ``scores.pkl`` ({config_keys: [t_train, t_test,
+scores, scores_total]}); a partial ``scores.pkl`` is reloaded and its
+configs are skipped. ``shap``: Tree SHAP values of the two paper configs,
+written as ``shap.pkl`` (a list of two float32 [N, F] arrays in
+``config.SHAP_CONFIGS`` order)."""
 
 import os
 import pickle
 import sys
 import time
 
-from flake16_framework_tpu_torch.constants import SCORES_FILE, TESTS_FILE
+import numpy as np
+import torch
+
+from flake16_framework_tpu_torch import config as cfg, rng
+from flake16_framework_tpu_torch.constants import (
+    SCORES_FILE, SHAP_FILE, TESTS_FILE,
+)
 from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
 from flake16_framework_tpu_torch.device import resolve
+from flake16_framework_tpu_torch.ops import trees, treeshap
+from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
+from flake16_framework_tpu_torch.ops.resample import resample
 from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
 from flake16_framework_tpu_torch.utils.synth import atomic_write_bytes
 
@@ -56,3 +67,67 @@ def write_scores(tests_file=TESTS_FILE, out_file=SCORES_FILE, *,
     scores = engine.run_grid(configs, ledger=ledger, progress=progress)
     _dump(scores, out_file)
     return scores
+
+
+def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
+                    tree_overrides=None, device=None):
+    """The SHAP stage's fit (reference get_shap): preprocess the full
+    matrix, balance it, fit the config's forest on the balanced set with
+    node capacity 4N. Keys as the JAX package's staged path:
+    ``split(PRNGKey(0))`` into the resampler's and the forest's.
+    Returns (xp [N, F'] the preprocessed samples, forest)."""
+    dev = resolve(device)
+    fl, cols, prep, bal, spec = cfg.resolve_config(config_keys)
+    if tree_overrides and spec.name in tree_overrides:
+        spec = type(spec)(spec.name, tree_overrides[spec.name],
+                          spec.bootstrap, spec.random_splits,
+                          spec.sqrt_features)
+    x = torch.as_tensor(np.asarray(feats[:, list(cols)], dtype=np.float32),
+                        device=dev)
+    y = torch.as_tensor(np.asarray(labels_raw) == fl, device=dev)
+    n = x.shape[0]
+    mu, wmat = fit_preprocess(x, prep)
+    xp = transform(x, mu, wmat)
+    kb, kf = rng.split(rng.prng_key(0, dev)).unbind(0)
+    xs, ys, ws = resample(xp, y, torch.ones(n, dtype=torch.float32,
+                                            device=dev), bal, kb, 2 * n)
+    forest = trees.fit_forest_hist(
+        xs, ys, ws, kf, n_trees=spec.n_trees, bootstrap=spec.bootstrap,
+        random_splits=spec.random_splits, sqrt_features=spec.sqrt_features,
+        max_depth=max_depth, max_nodes=4 * n)
+    return xp, forest
+
+
+def shap_for_config(config_keys, feats, labels_raw, *, max_depth=48,
+                    tree_overrides=None, device=None):
+    """One SHAP config: fit (``fit_shap_forest``), then explain every
+    original sample. Returns {"values": class-0 SHAP values [N, F'] f32
+    numpy, "forest", "x": the explained samples, "fit_s", "explain_s":
+    the two stages' walls in seconds}."""
+    dev = resolve(device)
+    t0 = time.time()
+    xp, forest = fit_shap_forest(config_keys, feats, labels_raw,
+                                 max_depth=max_depth,
+                                 tree_overrides=tree_overrides, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    fit_s = time.time() - t0
+    t0 = time.time()
+    values = treeshap.forest_shap_class0(forest, xp).cpu().numpy()
+    return {"values": values, "forest": forest, "x": xp, "fit_s": fit_s,
+            "explain_s": time.time() - t0}
+
+
+def write_shap(tests_file=TESTS_FILE, out_file=SHAP_FILE, *, max_depth=48,
+               tree_overrides=None, device=None):
+    """The two paper configs (``config.SHAP_CONFIGS``): pickles their
+    values to ``out_file`` and returns the per-config results of
+    ``shap_for_config``. Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    device = resolve(device)
+    feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
+    results = [shap_for_config(keys, feats, labels, max_depth=max_depth,
+                               tree_overrides=tree_overrides, device=device)
+               for keys in cfg.SHAP_CONFIGS]
+    _dump([r["values"] for r in results], out_file)
+    return results

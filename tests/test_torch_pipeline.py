@@ -118,6 +118,8 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="No command"):
         tmain.main([])
     with pytest.raises(ValueError, match="Unrecognized command"):
-        tmain.main(["shap"])
+        tmain.main(["figures"])
+    with pytest.raises(ValueError, match="Unrecognized shap option"):
+        tmain.main(["shap", "grid"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
         tmain.main(["scores", "lopo"])
