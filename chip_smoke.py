@@ -118,13 +118,43 @@ def check_hist_kernel():
     }
 
 
-def unit_ops(u, n_samples):
-    """f32 operations the unit needs for work items of live counts u, each
-    against ``n_samples`` samples, counting every add, multiply, compare
-    and division as one: per (work item, sample) 3u for the one
-    fractions, 4u^2 + 13u for EXTEND (step k updates positions 0..k+1),
-    5u^2 for UNWIND (u positions a slot, at the cheaper o = 0 branch) and
-    5u for the contributions: 9u^2 + 21u."""
+def one_counts(fid, z, lo, hi, u, scale, x):
+    """Per work item, the number of (live slot, sample) pairs with o = 1,
+    int64 [R], computed on the card in the plain version's row batches."""
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import PLAIN_ROWS
+
+    cap = fid.shape[1]
+    slots = torch.arange(cap, device=x.device)
+    out = []
+    for a in range(0, fid.shape[0], PLAIN_ROWS):
+        b = slice(a, a + PLAIN_ROWS)
+        x_sel = x.T[fid[b].long()]                              # [r, cap, S]
+        o = (x_sel > lo[b, :, None]) & (x_sel <= hi[b, :, None])
+        live = (slots < u[b, None])[..., None]
+        out.append((o & live).sum((1, 2)))
+    return torch.cat(out)
+
+
+def unit_ops(u, n1, n_samples):
+    """f32 flops (FMA = 2) that the kernel's division-free formulation
+    needs for work items of live counts u [R] against ``n_samples``
+    samples, with n1 [R] the (live slot, sample) pairs with o = 1 of each
+    (``one_counts``). Per (work item, sample): 2u one-fraction compares;
+    u^2 for EXTEND (step k: one multiply at position 0, an FMA at each of
+    1..k, a select at k + 1); u + 1 multiplies back to the reference's
+    weights; 2u for the shared o = 0 sum S0; 4u for each o = 1 slot's
+    unwind (two FMAs a position); 2u for the contributions (a multiply and
+    an add a slot): u^2 + 7u + 1 + 4u n1. Work per path that does not
+    depend on the sample (the coefficients) is left out."""
+    u, n1 = u.double(), n1.double()
+    return float((u * u + 7.0 * u + 1.0).sum() * n_samples
+                 + (4.0 * u * n1).sum())
+
+
+def unit_ops_division(u, n_samples):
+    """The bound of the division form this kernel replaced, kept for
+    comparison: 9u^2 + 21u operations per (work item, sample), each add,
+    multiply, compare and division counted as one."""
     u = u.double()
     return float((9.0 * u * u + 21.0 * u).sum()) * n_samples
 
@@ -166,15 +196,21 @@ def check_unit_kernel(tests_file):
                                      f"(max {ref})")
             del got, again, want
             u = args[4]
+            n1 = one_counts(*args, x)
+            ops = unit_ops(u, n1, x.shape[0])
+            ms = _cuda_ms(lambda: unit_shap(*args, x), reps=5, warm=1)
             buckets.append({
                 "config": "/".join(keys), "cap": cap,
                 "paths": args[0].shape[0],
                 "mean_u": float(u.double().mean()),
+                "o1_share": float(n1.sum()) / float(u.sum()) / x.shape[0],
                 "max_abs_err": err, "max_abs_plain": ref,
-                "ms": _cuda_ms(lambda: unit_shap(*args, x), reps=5, warm=1),
+                "ms": ms,
                 "plain_ms": _cuda_ms(lambda: unit_shap_plain(*args, x),
                                      reps=1, warm=0),
-                "ops": unit_ops(u, x.shape[0]),
+                "ops": ops,
+                "ops_division": unit_ops_division(u, x.shape[0]),
+                "bound_share": ops / F32_OPS_PER_S * 1e3 / ms,
                 "bytes": sum(a.numel() * 4 for a in args)
                 + 2 * x.numel() * 4,
             })
@@ -182,14 +218,16 @@ def check_unit_kernel(tests_file):
     bytes_ms = sum(b["bytes"] for b in buckets) / HBM_BYTES_PER_S * 1e3
     per_config = {}
     for b in buckets:
-        c = per_config.setdefault(b["config"], {"ms": 0.0, "plain_ms": 0.0,
-                                                "ops": 0.0, "buckets": 0})
-        c["ms"] += b["ms"]
-        c["plain_ms"] += b["plain_ms"]
-        c["ops"] += b["ops"]
+        c = per_config.setdefault(b["config"], {
+            "ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "ops_division": 0.0,
+            "buckets": 0})
+        for k in ("ms", "plain_ms", "ops", "ops_division"):
+            c[k] += b[k]
         c["buckets"] += 1
     for c in per_config.values():
         c["bound_ms"] = c.pop("ops") / F32_OPS_PER_S * 1e3
+        c["bound_ms_division"] = c.pop("ops_division") / F32_OPS_PER_S * 1e3
+        c["bound_share"] = c["bound_ms"] / c["ms"]
     return {
         "name": "treeshap_unit", "route": "cuda",
         "source": "flake16_framework_tpu_torch/csrc/treeshap_unit.cu",
@@ -199,6 +237,8 @@ def check_unit_kernel(tests_file):
         "plain_ms": sum(b["plain_ms"] for b in buckets),
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms_division": sum(b["ops_division"] for b in buckets)
+        / F32_OPS_PER_S * 1e3,
         "library_ms": None,
         "samples": N_TESTS, "per_config": per_config, "buckets": buckets,
     }
@@ -468,16 +508,21 @@ def main():
         k2 = check_unit_kernel(tj)
         for b in k2["buckets"]:
             print(f"treeshap_unit {b['config']} cap {b['cap']}: "
-                  f"{b['paths']} paths x {k2['samples']} samples, err "
+                  f"{b['paths']} paths (mean u {b['mean_u']:.2f}, o = 1 "
+                  f"{b['o1_share']:.3f}) x {k2['samples']} samples, err "
                   f"{b['max_abs_err']:.3g} (max {b['max_abs_plain']:.3g}), "
-                  f"kernel {b['ms']:.4f} ms, plain {b['plain_ms']:.3f} ms",
-                  flush=True)
+                  f"kernel {b['ms']:.4f} ms, plain {b['plain_ms']:.3f} ms, "
+                  f"{b['bound_share']:.1%} of bound", flush=True)
         for name, c in k2["per_config"].items():
             print(f"treeshap_unit {name}: {c['ms']:.4f} ms over "
                   f"{c['buckets']} buckets, plain {c['plain_ms']:.3f} ms, "
-                  f"bound {c['bound_ms']:.4f} ms", flush=True)
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_share']:.1%}; "
+                  f"division-form bound {c['bound_ms_division']:.4f} ms)",
+                  flush=True)
         print(f"treeshap_unit: {k2['ms']:.4f} ms over both configs, bound "
-              f"{k2['bound_ms']:.4f} ms ({k2['bound_by']})", flush=True)
+              f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), "
+              f"division-form bound {k2['bound_ms_division']:.4f} ms",
+              flush=True)
         small = check_small_reference()
         print(f"small reference: {small}", flush=True)
 

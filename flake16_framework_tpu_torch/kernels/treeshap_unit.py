@@ -15,11 +15,14 @@ x f32 [S, F]. Output: phi [F, S] f32, summed over the R work items (the
 caller divides by the tree count).
 
 ``unit_shap`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; it never falls back.
+version only for CPU tensors; it never falls back. The kernel divides in
+no per-sample loop: ``unit_tables`` holds the coefficients that depend
+only on u and a position, and the wrapper passes them with every launch.
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -28,8 +31,12 @@ from flake16_framework_tpu_torch.kernels import build
 # Work items a block walks (one chunk; its partial is one slice of the
 # [n_chunks, F, S] output that the wrapper sums): at most CHUNK, fewer
 # when that would leave the card with under BLOCKS_PER_SM blocks an SM,
-# but at least MIN_CHUNK (the kernel stages 32 at a time).
-CHUNK = 1024
+# but at least MIN_CHUNK (the kernel stages 8 at a time). Rows sorted by
+# u make chunks of unequal cost, so many short chunks balance the SMs:
+# on an H100, 64 and 128 ran the cap-16 buckets of the paper configs'
+# forests about as fast, and 1024 up to 1.6x slower
+# (measure_treeshap_unit.py).
+CHUNK = 128
 MIN_CHUNK = 32
 BLOCKS_PER_SM = 8
 TILE = 128         # samples a block (kTile in the kernel)
@@ -38,6 +45,31 @@ MAX_FEATURES = 16  # rows of its shared-memory accumulator
 # Work items of one batch of the plain version: bounds its [rows, cap + 2,
 # S] workspaces (about 0.3 GB each at cap 16, S = 4000).
 PLAIN_ROWS = 1024
+
+
+# Rows of ``unit_tables`` (the kernel's kC, kE, kH, kF).
+TABLE_C, TABLE_E, TABLE_H, TABLE_F = range(4)
+
+
+@functools.cache
+def unit_tables():
+    """The kernel's coefficient tables, f32 [4, MAX_CAP + 1, MAX_CAP + 1]
+    on the CPU, indexed [table, u, j] (u = 0 unused, zero where j is out of
+    range), each rounded once from float64:
+    C[u, j] = (u + 1) / (j + 1) and E[u, j] = (u - j) / (j + 1) for the
+    o = 1 unwind, H[u, j] = (u + 1) / (u - j) for the o = 0 sum (j < u),
+    and F[u, j] = j! / (u + 1)!, which takes EXTEND's scaled weights back
+    to the reference's (j <= u)."""
+    n = MAX_CAP + 1
+    t = torch.zeros((4, n, n), dtype=torch.float64)
+    for u in range(1, n):
+        for j in range(u):
+            t[TABLE_C, u, j] = (u + 1) / (j + 1)
+            t[TABLE_E, u, j] = (u - j) / (j + 1)
+            t[TABLE_H, u, j] = (u + 1) / (u - j)
+        for j in range(u + 1):
+            t[TABLE_F, u, j] = math.factorial(j) / math.factorial(u + 1)
+    return t.to(torch.float32)
 
 
 def unit_shap_plain(fid, z, lo, hi, u, scale, x):
@@ -152,8 +184,9 @@ def unit_shap(fid, z, lo, hi, u, scale, x):
                           device=x.device)
     with torch.cuda.device(x.device):
         err = _launcher()(
-            fid.data_ptr(), z.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            u.data_ptr(), scale.data_ptr(), x.data_ptr(), partial.data_ptr(),
+            unit_tables().data_ptr(), fid.data_ptr(), z.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), u.data_ptr(), scale.data_ptr(),
+            x.data_ptr(), partial.data_ptr(),
             r, cap, s, n_feat, chunk, x.device.index,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -169,6 +202,6 @@ unit_shap.launches = 0
 def _launcher():
     """The C entry point, loaded (and built) once with its signature."""
     fn = build.load("treeshap_unit").treeshap_unit_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -153,7 +153,9 @@ def bucket_inputs(forest, n_features):
     """The forest's work items as unit inputs, one entry per occupied cap
     bucket: [(cap, (fid, z, lo, hi, u, scale))], contiguous row tensors on
     the forest's device. Trims the node axis first, as the JAX package
-    does (one host read of max(n_nodes), rounded up to 128)."""
+    does (one host read of max(n_nodes), rounded up to 128). Within a
+    bucket the rows are sorted by u (stable), so that each chunk of the
+    unit's kernel holds one u, or a few."""
     m = forest.feature.shape[-1]
     n_used = int(forest.n_nodes.max())
     m_trim = min(m, max(128, -(-n_used // 128) * 128))
@@ -161,11 +163,12 @@ def bucket_inputs(forest, n_features):
         forest = trim_nodes(forest, m_trim)
     depth = int(forest.max_depth)
     comp = compact_paths(forest, depth, n_features)
-    plan = pack_work_items(comp["u"].cpu().numpy(),
-                           comp["valid"].cpu().numpy(),
+    u = comp["u"].cpu().numpy()
+    plan = pack_work_items(u, comp["valid"].cpu().numpy(),
                            n_features=n_features, depth=depth)
     out = []
     for cap, rows in plan:
+        rows = rows[np.argsort(u[rows], kind="stable")]
         idx = torch.from_numpy(rows).to(forest.feature.device)
         out.append((cap, tuple(
             comp[k][idx, :cap].contiguous() if comp[k].dim() == 2
