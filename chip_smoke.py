@@ -3,7 +3,11 @@ NVIDIA H100: builds the CUDA kernels from ``csrc/``, holds each against its
 plain PyTorch version at the main path's shapes, drives the two main paths
 at full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
 depth 48) and checks what comes out: the ``scores`` verb (10 folds, 64
-bins) on two configs, and the ``shap`` verb on both paper configs.
+bins) on two configs, and the ``shap`` verb on both paper configs. The
+histogram kernel is also held and timed on the grower's real BFS steps:
+every step of the first fold's fit of each ``scores`` config, recorded at
+full width. Both ``scores`` configs then run once more under the
+profiler, for the kernels' shares of device time.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
@@ -26,6 +30,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+SLEEP_CYCLES_PER_S = 2e9       # torch.cuda._sleep cycles, about the SM clock
 
 SHAP_TOL = (1e-5, 1e-7)        # |a - b| <= rel * max|b| + abs
 LOCAL_ACCURACY_TOL = 1e-5
@@ -51,14 +56,55 @@ def _cuda_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def check_hist_kernel():
-    """K1 against its plain version at the main path's shapes: one fold's
-    100 trees, N = cap = 8000, F = 16, B = 64, W = 128, integer bootstrap
-    weights. Bitwise equality is required."""
-    from flake16_framework_tpu_torch.kernels.hist import (
-        cum_hists, cum_hists_plain,
-    )
+def _device_ms(fn, reps, warm=2):
+    """(device ms a call, host ms a call, queued) of ``fn``. The timed
+    calls are queued behind a sleeping kernel that outlasts the host's
+    enqueue of all of them, so the host's launch overhead is off the
+    timed path; ``queued`` says whether the sleep did outlast it. The host
+    time is that of an enqueue of ``reps`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * reps * SLEEP_CYCLES_PER_S) + 10 ** 6)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_s * 1e3, queued
 
+
+def hist_bound_ms(rel, w, bin_t, n_nodes, n_bins):
+    """K1's least time on the card for these inputs: each input read once
+    ([T, N] int32 rel, f32 w and wy, [F, N] uint8 bins) and both
+    [T, F, W, B] f32 outputs written once, over the memory rate, against
+    the adds (two for each in-window sample of weight > 0 and feature, two
+    an output element) over the f32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    n_tree, n = rel.shape
+    n_feat = bin_t.shape[0]
+    in_window = int(((rel >= 0) & (rel < n_nodes) & (w > 0)).sum())
+    out_elems = n_tree * n_feat * n_nodes * n_bins
+    nbytes = n_tree * n * 12 + n_feat * n + 2 * out_elems * 4
+    ops = 2 * n_feat * in_window + 2 * out_elems
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def synthetic_hist_inputs():
+    """K1's inputs at the full window: one fold's 100 trees, N = cap =
+    8000, F = 16, B = 64, W = 128, integer bootstrap weights, and about
+    80% of the samples in the window, so that all 128 rows are occupied."""
     n_tree, n, n_feat = 100, 2 * N_TESTS, 16
     rs = np.random.RandomState(0)
     w = rs.poisson(1.0, size=(n_tree, n)).astype(np.float32)
@@ -72,18 +118,36 @@ def check_hist_kernel():
     w_t = torch.from_numpy(w).to(dev)
     wy_t = w_t * torch.from_numpy(y).to(dev)
     bin_t = torch.from_numpy(bins).to(dev)
-    args = (rel_t, w_t, wy_t, bin_t, NODE_BATCH, N_BINS)
+    return (rel_t, w_t, wy_t, bin_t, NODE_BATCH, N_BINS)
 
+
+def check_hist_kernel():
+    """K1 against its plain version at the synthetic full window
+    (``synthetic_hist_inputs``). Bitwise equality is required, also
+    between two runs."""
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+
+    args = synthetic_hist_inputs()
+    rel_t, w_t, wy_t, bin_t = args[:4]
+    n_tree, n = rel_t.shape
+    n_feat = bin_t.shape[0]
+    dev = rel_t.device
     cw, cwy = cum_hists(*args)
+    again = cum_hists(*args)
     pw, pwy = cum_hists_plain(*args)
     torch.cuda.synchronize()
     err = max(float((cw - pw).abs().max()), float((cwy - pwy).abs().max()))
-    bitwise = torch.equal(cw, pw) and torch.equal(cwy, pwy)
-    if not bitwise:
+    if not (torch.equal(cw, pw) and torch.equal(cwy, pwy)):
         raise AssertionError(f"hist_cumsum differs from cum_hists_plain: "
                              f"max abs err {err}")
+    if not (torch.equal(cw, again[0]) and torch.equal(cwy, again[1])):
+        raise AssertionError("hist_cumsum: two runs differ")
+    del cw, cwy, again, pw, pwy
 
-    ms = _cuda_ms(lambda: cum_hists(*args), reps=20)
+    ms, host_ms, queued = _device_ms(lambda: cum_hists(*args), reps=20)
+    back_to_back_ms = _cuda_ms(lambda: cum_hists(*args), reps=20)
     plain_ms = _cuda_ms(lambda: cum_hists_plain(*args), reps=3, warm=1)
     # Library yardstick: the one-hot contraction as one einsum per class
     # on prebuilt f32 one-hots, plus the bin cumsum.
@@ -99,23 +163,125 @@ def check_hist_kernel():
     library_ms = _cuda_ms(library, reps=3, warm=1)
     del member, ohw, ohwy, ohfb
 
-    in_window = int(((rel_t >= 0) & (rel_t < NODE_BATCH) & (w_t > 0)).sum())
-    out_elems = n_tree * n_feat * NODE_BATCH * N_BINS
-    nbytes = n_tree * n * 12 + n_feat * n + 2 * out_elems * 4
-    ops = 2 * n_feat * in_window + 2 * out_elems
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = hist_bound_ms(rel_t, w_t, bin_t, NODE_BATCH, N_BINS)
     return {
         "name": "hist_cumsum", "route": "cuda",
         "source": "flake16_framework_tpu_torch/csrc/hist_cumsum.cu",
         "replaces": "flake16_framework_tpu/ops/trees.py:723",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "host_ms_per_call": host_ms,
+        "queued": queued, "back_to_back_ms": back_to_back_ms,
         "shape": {"trees": n_tree, "n": n, "features": n_feat,
                   "window": NODE_BATCH, "bins": N_BINS},
     }
+
+
+def record_steps(engine, config):
+    """K1's inputs at every BFS step of the first fold's fit of ``config``
+    (a ``SweepEngine`` run cut after that fit), as clones on the engine's
+    device: [(rel, w, wy, bin_t, n_nodes, n_bins), ...]. Wraps the
+    grower's ``cum_hists`` and ``fit_forest_hist`` for this call only."""
+    from flake16_framework_tpu_torch.ops import trees
+
+    steps = []
+    real_cum_hists, real_fit = trees.cum_hists, trees.fit_forest_hist
+
+    class OneFold(Exception):
+        pass
+
+    def recorder(rel, w, wy, bin_t, n_nodes, n_bins):
+        steps.append((rel.clone(), w.clone(), wy.clone(), bin_t.clone(),
+                      n_nodes, n_bins))
+        return real_cum_hists(rel, w, wy, bin_t, n_nodes, n_bins)
+
+    def one_fit(*args, **kwargs):
+        real_fit(*args, **kwargs)
+        raise OneFold
+
+    trees.cum_hists, trees.fit_forest_hist = recorder, one_fit
+    try:
+        engine.run_config(config)
+    except OneFold:
+        pass
+    finally:
+        trees.cum_hists, trees.fit_forest_hist = real_cum_hists, real_fit
+    return steps
+
+
+def step_stats(rel, w, n_nodes):
+    """(share of the live samples (w > 0) in the window, occupied window
+    rows per tree [T]) of one recorded step."""
+    live = w > 0
+    inw = live & (rel >= 0) & (rel < n_nodes)
+    share = float(inw.sum()) / max(1, int(live.sum()))
+    occ = torch.zeros((rel.shape[0], n_nodes), device=rel.device)
+    occ.scatter_add_(1, rel.clamp(0, n_nodes - 1).long(), inw.float())
+    return share, (occ > 0).sum(1)
+
+
+def launch_steps(steps):
+    """K1 on each recorded step in turn, its outputs dropped."""
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
+
+    for s in steps:
+        cum_hists(*s)
+
+
+def check_real_steps(tests_file):
+    """K1 on the grower's real BFS steps: every step of the first fold's
+    fit of each ``scores`` config at full width, recorded by
+    ``record_steps``. Each step's output must be bitwise equal to the
+    plain version's and to a second run's. Times the kernel over all
+    steps (CUDA events) against the sum of the steps' byte bounds, and
+    summarises the steps' in-window shares and occupied rows."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    out = []
+    for config in MAIN_CONFIGS:
+        steps = record_steps(engine, config)
+        per_step = []
+        for s in steps:
+            got, again = cum_hists(*s), cum_hists(*s)
+            want = cum_hists_plain(*s)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"hist_cumsum differs from plain on a "
+                                     f"real step of {config}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"hist_cumsum: two runs differ on a "
+                                     f"real step of {config}")
+            del got, again, want
+            share, rows = step_stats(s[0], s[1], s[4])
+            ms, _, queued = _device_ms(lambda: cum_hists(*s), reps=10)
+            per_step.append({
+                "ms": ms, "queued": queued,
+                "bound_ms": hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0],
+                "in_window_share": share,
+                "rows_mean": float(rows.float().mean()),
+                "rows_max": int(rows.max())})
+        sum_ms, host_ms, queued = _device_ms(lambda: launch_steps(steps),
+                                             reps=5)
+        bound = sum(p["bound_ms"] for p in per_step)
+        out.append({
+            "config": "/".join(config), "steps": len(steps),
+            "sum_ms": sum_ms, "mean_ms": sum_ms / len(steps),
+            "queued": queued and all(p["queued"] for p in per_step),
+            "host_ms_per_call": host_ms / len(steps),
+            "back_to_back_sum_ms": _cuda_ms(lambda: launch_steps(steps),
+                                            reps=5),
+            "bound_sum_ms": bound, "bound_share": bound / sum_ms,
+            "in_window_share_mean": float(np.mean(
+                [p["in_window_share"] for p in per_step])),
+            "rows_mean": float(np.mean([p["rows_mean"] for p in per_step])),
+            "steps_le_16_rows": sum(p["rows_mean"] <= 16 for p in per_step),
+            "per_step": per_step})
+        del steps
+    return out
 
 
 def one_counts(fid, z, lo, hi, u, scale, x):
@@ -498,7 +664,10 @@ def main():
         print(f"nvcc {name}: {logs[name].strip()}", flush=True)
 
     k1 = check_hist_kernel()
-    print(f"hist_cumsum bitwise == plain; kernel {k1['ms']:.4f} ms, plain "
+    print(f"hist_cumsum bitwise == plain and repeatable; kernel "
+          f"{k1['ms']:.4f} ms of device time (back to back "
+          f"{k1['back_to_back_ms']:.4f} ms, host {k1['host_ms_per_call']:.4f} "
+          f"ms a call, queued {k1['queued']}), plain "
           f"{k1['plain_ms']:.3f} ms, library {k1['library_ms']:.3f} ms, "
           f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})", flush=True)
 
@@ -523,6 +692,19 @@ def main():
               f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), "
               f"division-form bound {k2['bound_ms_division']:.4f} ms",
               flush=True)
+        real = check_real_steps(tj)
+        for r in real:
+            print(f"hist_cumsum real steps {r['config']}: {r['steps']} "
+                  f"steps, {r['sum_ms']:.4f} ms of device time in all "
+                  f"({r['mean_ms']:.4f} ms a step; back to back "
+                  f"{r['back_to_back_sum_ms']:.4f} ms, host "
+                  f"{r['host_ms_per_call']:.4f} ms a call, queued "
+                  f"{r['queued']}), bound {r['bound_sum_ms']:.4f} ms "
+                  f"({r['bound_share']:.1%}), in-window share "
+                  f"{r['in_window_share_mean']:.3f}, occupied rows "
+                  f"{r['rows_mean']:.1f} of {NODE_BATCH}, "
+                  f"{r['steps_le_16_rows']} steps with <= 16; bitwise == "
+                  f"plain and repeatable on every step", flush=True)
         small = check_small_reference()
         print(f"small reference: {small}", flush=True)
 
@@ -539,10 +721,18 @@ def main():
                   f"{c['local_accuracy_max_err']:.3g}", flush=True)
         print(f"shap path launches: {shap_launches}, wall {shap_wall:.2f} s",
               flush=True)
-        run_s = 10 * (configs[0]["t_train_per_fold_s"]
-                      + configs[0]["t_test_per_fold_s"])
-        prof = profile_config(tj, MAIN_CONFIGS[0], run_s)
-    print(f"profile: {json.dumps(prof)}", flush=True)
+        prof = [profile_config(tj, k, 10 * (c["t_train_per_fold_s"]
+                                            + c["t_test_per_fold_s"]))
+                for k, c in zip(MAIN_CONFIGS, configs)]
+    for p in prof:
+        print(f"profile {p['config']}: {p['kernel_launches']} launches, "
+              f"busy {p['device_busy_ms']:.1f} ms, idle "
+              f"{p['device_idle_share']:.1%}, hist_cumsum "
+              f"{p['hist_cumsum_ms']:.2f} ms over "
+              f"{p['hist_cumsum_launches']} launches "
+              f"({p['hist_share_of_device']:.1%} of device time)",
+              flush=True)
+        print(f"profile: {json.dumps(p)}", flush=True)
 
     paths = {"scores": score_launches, "shap": shap_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
@@ -553,6 +743,7 @@ def main():
         for kern in (k1, k2)]}
     report = {"nvidia_smi": smi, "build_s": build_s, "nvcc": logs,
               "kernels": [k1, k2], "launches_by_path": paths,
+              "hist_real_steps": real,
               "small_reference": small, "scores_path": configs,
               "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
               "profile": prof, "torch": torch.__version__,

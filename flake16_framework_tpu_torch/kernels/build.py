@@ -43,20 +43,25 @@ def _lib_path(name):
 def build(*names):
     """Compile each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
     a source, all started together. Returns {name: the compiler's output
-    (register and shared-memory use)}, empty for a library that was
-    reused. Waits for every compiler before it raises on a failure."""
+    (register, shared-memory and spill report)}, kept beside the library
+    and read back when the library is reused. Waits for every compiler
+    before it raises on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
+    logs = {}
     for name in names:
         out = _lib_path(name)
-        if out.exists() or name in started:
+        if out.exists():
+            log = out.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
+            continue
+        if name in started:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out)
-    logs = {name: "" for name in names}
     failed = []
     for name, (proc, tmp, out) in started.items():
         logs[name] = proc.communicate()[0]
@@ -64,6 +69,7 @@ def build(*names):
             failed.append(f"nvcc failed on {name}.cu (exit "
                           f"{proc.returncode}):\n{logs[name]}")
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -9,8 +9,11 @@ For each tree t, feature f, window node w and bin b::
 ``rel`` [T, N] int32 is each sample's node id relative to the window start
 (outside [0, W) means "not in the window"), ``w``/``wy`` [T, N] f32 the
 per-tree weights and weights times label, ``bin_t`` [F, N] uint8 the bin
-indices, feature-major so a feature's bins are contiguous. Outputs are f32
-[T, F, W, B] x 2.
+indices (each below B), feature-major so a feature's bins are contiguous.
+Outputs are f32 [T, F, W, B] x 2. The kernel counts whole weights as
+integers and is bitwise equal to the plain version wherever the f32 sums
+are exact (whole weights whose per-node sums stay below 2^24, as the
+grower's are).
 
 ``cum_hists`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; it never falls back.
@@ -25,6 +28,52 @@ from flake16_framework_tpu_torch.kernels import build
 
 # Shared memory a block may use on Hopper (bytes).
 _SMEM_LIMIT = 232448
+
+# Launch geometry: features a tile (a block's pass over a tree's samples
+# feeds this many histograms), threads a block, and blocks (0: as many as
+# are resident on the card at once, the kernel's persistent grid).
+GROUP = 4
+THREADS = 1024
+GRID = 0
+# Count both classes as packed 16-bit integers where a tile's weights
+# allow it (a tile that they do not is added in f32, one class a pass);
+# False sends every tile through the f32 passes.
+PACKED = True
+
+
+def smem_bytes(n_nodes, n_bins, group):
+    """Dynamic shared memory of a block (``csrc/hist_cumsum.cu``): the
+    [group, W, B] 32-bit cells padded to whole float4s, two arrays of W row
+    marks each rounded up to 16 bytes, and two pairs of 32-bit totals."""
+    cells = (group * n_nodes * n_bins + 3) // 4 * 4
+    return cells * 4 + 2 * ((n_nodes + 15) // 16 * 16) + 16
+
+
+def check_inputs(rel, w, wy, bin_t, n_nodes, n_bins, group):
+    """Raise ValueError for inputs the kernel cannot take: wrong types or
+    shapes, other devices, non-contiguous tensors, rel/w/wy not 16-byte
+    aligned (the kernel reads them four samples at a time), bins outside
+    [1, 256], or a window whose histogram exceeds shared memory."""
+    n_tree, n = rel.shape
+    n_feat = bin_t.shape[0]
+    for name, t, dtype, shape in (("rel", rel, torch.int32, (n_tree, n)),
+                                  ("w", w, torch.float32, (n_tree, n)),
+                                  ("wy", wy, torch.float32, (n_tree, n)),
+                                  ("bin_t", bin_t, torch.uint8, (n_feat, n))):
+        if t.device != rel.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"cum_hists: {name} must be a contiguous {dtype} {shape} "
+                f"tensor on {rel.device}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device} (contiguous={t.is_contiguous()})")
+        if name != "bin_t" and t.data_ptr() % 16:
+            raise ValueError(f"cum_hists: {name} must start on a 16-byte "
+                             f"boundary")
+    if not 1 <= n_bins <= 256:
+        raise ValueError(f"cum_hists: n_bins must be in [1, 256], got {n_bins}")
+    if n_nodes < 1 or smem_bytes(n_nodes, n_bins, group) > _SMEM_LIMIT:
+        raise ValueError(f"cum_hists: a {n_nodes} x {n_bins} window of "
+                         f"{group} feature(s) exceeds shared memory")
 
 
 def cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins):
@@ -49,33 +98,17 @@ def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
         return cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins)
     if rel.device.type != "cuda":
         raise ValueError(f"cum_hists: unsupported device {rel.device}")
+    check_inputs(rel, w, wy, bin_t, n_nodes, n_bins, GROUP)
     n_tree, n = rel.shape
     n_feat = bin_t.shape[0]
-    for name, t, dtype, shape in (("rel", rel, torch.int32, (n_tree, n)),
-                                  ("w", w, torch.float32, (n_tree, n)),
-                                  ("wy", wy, torch.float32, (n_tree, n)),
-                                  ("bin_t", bin_t, torch.uint8, (n_feat, n))):
-        if t.device != rel.device or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"cum_hists: {name} must be a contiguous {dtype} {shape} "
-                f"tensor on {rel.device}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device} (contiguous={t.is_contiguous()})")
-    if not 1 <= n_bins <= 256:
-        raise ValueError(f"cum_hists: n_bins must be in [1, 256], got {n_bins}")
-    if 2 * n_nodes * (n_bins + 1) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"cum_hists: a {n_nodes} x {n_bins} window exceeds "
-                         f"shared memory")
-    if n_tree > 65535:
-        raise ValueError(f"cum_hists: at most 65535 trees a launch, got {n_tree}")
-    cw = torch.empty((n_tree, n_feat, n_nodes, n_bins), dtype=torch.float32,
-                     device=rel.device)
-    cwy = torch.empty_like(cw)
-    with torch.cuda.device(rel.device):
-        err = _launcher()(
-            rel.data_ptr(), w.data_ptr(), wy.data_ptr(), bin_t.data_ptr(),
-            cw.data_ptr(), cwy.data_ptr(), n_tree, n, n_feat, n_nodes, n_bins,
-            rel.device.index, torch.cuda.current_stream().cuda_stream)
+    out = torch.empty((2, n_tree, n_feat, n_nodes, n_bins),
+                      dtype=torch.float32, device=rel.device)
+    cw, cwy = out[0], out[1]
+    err = _launcher()(
+        rel.data_ptr(), w.data_ptr(), wy.data_ptr(), bin_t.data_ptr(),
+        cw.data_ptr(), cwy.data_ptr(), n_tree, n, n_feat, n_nodes, n_bins,
+        GROUP, THREADS, GRID, int(PACKED), rel.device.index,
+        torch.cuda.current_stream(rel.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_cumsum launch failed: CUDA error {err}")
     cum_hists.launches += 1
@@ -89,6 +122,21 @@ cum_hists.launches = 0
 def _launcher():
     """The C entry point, loaded (and built) once with its signature."""
     fn = build.load("hist_cumsum").hist_cumsum_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy(n_nodes, n_bins, group, threads):
+    """(resident blocks per SM, SM count) of the kernel at this window,
+    group and block size on the current CUDA device, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    fn = build.load("hist_cumsum").hist_cumsum_occupancy
+    fn.restype = ctypes.c_int
+    blocks, n_sm = ctypes.c_int(), ctypes.c_int()
+    err = fn(n_nodes, n_bins, group, threads, torch.cuda.current_device(),
+             ctypes.byref(blocks), ctypes.byref(n_sm))
+    if err != 0:
+        raise RuntimeError(f"hist_cumsum occupancy query failed: CUDA error "
+                           f"{err}")
+    return blocks.value, n_sm.value

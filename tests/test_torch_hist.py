@@ -11,6 +11,7 @@ import torch
 
 from flake16_framework_tpu.ops import trees as jtrees
 from flake16_framework_tpu_torch.kernels import hist
+from torch_hist_cases import EDGE_CASES, hist_inputs as _inputs
 
 
 @pytest.fixture(autouse=True)
@@ -21,22 +22,20 @@ def _jax_x64_off():
         yield
 
 
-def _inputs(seed, n_tree=3, n=600, n_feat=5, n_nodes=4, n_bins=16):
-    rs = np.random.RandomState(seed)
-    rel = rs.randint(-1, n_nodes + 2, size=(n_tree, n)).astype(np.int32)
-    w = rs.randint(0, 6, size=(n_tree, n)).astype(np.float32)
-    wy = w * (rs.rand(n) < 0.4)
-    bins = rs.randint(0, n_bins, size=(n_feat, n)).astype(np.uint8)
-    return rel, w, wy.astype(np.float32), bins, n_nodes, n_bins
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_plain_bitwise_vs_pallas_kernel(seed):
-    rel, w, wy, bins, n_nodes, n_bins = _inputs(seed)
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(seed=0), id="0"),
+    pytest.param(dict(seed=1), id="1"),
+    *[pytest.param(kw, id=name) for name, kw in EDGE_CASES.items()],
+])
+def test_plain_bitwise_vs_pallas_kernel(case):
+    rel, w, wy, bins, n_nodes, n_bins = _inputs(**case)
     cw, cwy = hist.cum_hists_plain(*map(torch.from_numpy, (rel, w, wy, bins)),
                                    n_nodes, n_bins)
-    # per-node sums reach well past 256: the f32 contraction is exact
-    assert float(cw[..., -1].max()) > 256
+    if set(case) == {"seed"}:
+        # per-node sums reach well past 256: the f32 contraction is exact
+        assert float(cw[..., -1].max()) > 256
+    if case.get("mode") in ("empty", "zero_w"):
+        assert not bool(cw.any()) and not bool(cwy.any())
     ohfb = jax.nn.one_hot(jnp.asarray(bins.T), n_bins, dtype=jnp.bfloat16)
     for t in range(rel.shape[0]):
         onehot = jnp.asarray(rel[t])[:, None] == jnp.arange(n_nodes)[None, :]
@@ -57,3 +56,34 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="unsupported device"):
         hist.cum_hists(*meta, 4, 16)
+
+
+@pytest.mark.parametrize("n_nodes,n_bins,group,want", [
+    (128, 64, 1, 128 * 64 * 4 + 2 * 128 + 16),     # the main path's window
+    (128, 64, 3, 3 * 128 * 64 * 4 + 2 * 128 + 16),
+    (1, 3, 1, 4 * 4 + 2 * 16 + 16),                # cells padded to float4
+    (5, 2, 1, 12 * 4 + 2 * 16 + 16),
+])
+def test_smem_bytes(n_nodes, n_bins, group, want):
+    assert hist.smem_bytes(n_nodes, n_bins, group) == want
+
+
+def test_check_inputs_rejects_what_the_kernel_cannot_take():
+    rel, w, wy, bins = (torch.from_numpy(a) for a in _inputs(0)[:4])
+    hist.check_inputs(rel, w, wy, bins, 4, 16, 1)        # accepted
+    with pytest.raises(ValueError, match="contiguous"):
+        hist.check_inputs(rel, w.double(), wy, bins, 4, 16, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist.check_inputs(rel, w, wy, bins[:, ::2], 4, 16, 1)
+    # a view that starts 4 bytes into its storage: not 16-byte aligned
+    off = torch.zeros(rel.numel() + 1, dtype=torch.int32)[1:].view(rel.shape)
+    assert off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        hist.check_inputs(off, w, wy, bins, 4, 16, 1)
+    with pytest.raises(ValueError, match="n_bins"):
+        hist.check_inputs(rel, w, wy, bins, 4, 257, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        hist.check_inputs(rel, w, wy, bins, 1024, 64, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        hist.check_inputs(rel, w, wy, bins, 128, 64, 8)   # 256 KB
+    hist.check_inputs(rel, w, wy, bins, 128, 64, 7)       # 224 KB fits

@@ -1,38 +1,94 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 Imports neither jax nor the JAX package, so it also runs where jax is not
 installed: ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
-Without a CUDA device every test skips. Grades: K1 bitwise (integer
-weights, exact in f32); K2 within 1e-5 * max|plain| + 1e-7 and bitwise
-across two runs."""
+Without a CUDA device every test skips. Grades: K1 bitwise (weights
+whose sums are exact in f32) and bitwise across two runs; K2 within
+1e-5 * max|plain| + 1e-7 and bitwise across two runs."""
 
 import numpy as np
 import pytest
 import torch
 
 from flake16_framework_tpu_torch.kernels import hist, treeshap_unit
+from torch_hist_cases import EDGE_CASES, hist_inputs
+
+
+def _hist_check(args, n_nodes, n_bins):
+    """One launch against the plain version, bitwise, and against a second
+    launch, bitwise."""
+    before = hist.cum_hists.launches
+    got = hist.cum_hists(*args, n_nodes, n_bins)
+    again = hist.cum_hists(*args, n_nodes, n_bins)
+    want = hist.cum_hists_plain(*args, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert hist.cum_hists.launches == before + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tree,n,n_feat,n_nodes,n_bins", [
-    (3, 600, 5, 4, 16),
-    (7, 3000, 16, 128, 64),
-    (2, 8000, 7, 128, 64),
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(seed=600, n_tree=3, n=600, n_feat=5, n_nodes=4,
+                      n_bins=16), id="3-600-5-4-16"),
+    pytest.param(dict(seed=3000, n_tree=7, n=3000, n_feat=16, n_nodes=128,
+                      n_bins=64), id="7-3000-16-128-64"),
+    pytest.param(dict(seed=8000, n_tree=2, n=8000, n_feat=7, n_nodes=128,
+                      n_bins=64), id="2-8000-7-128-64"),
+    # an odd n: tree rows start off 16-byte boundaries (head and tail)
+    pytest.param(dict(seed=7, n_tree=5, n=1001, n_feat=16, n_nodes=128,
+                      n_bins=64), id="5-1001-16-128-64"),
+    *[pytest.param(kw, id=name) for name, kw in EDGE_CASES.items()],
 ])
-def test_hist_cumsum_bitwise_vs_plain(n_tree, n, n_feat, n_nodes, n_bins):
+def test_hist_cumsum_bitwise_vs_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    rs = np.random.RandomState(n)
-    rel = rs.randint(-1, n_nodes + 2, size=(n_tree, n)).astype(np.int32)
-    w = rs.randint(0, 6, size=(n_tree, n)).astype(np.float32)
-    wy = (w * (rs.rand(n) < 0.4)).astype(np.float32)
-    bins = rs.randint(0, n_bins, size=(n_feat, n)).astype(np.uint8)
-    args = [torch.from_numpy(a).cuda() for a in (rel, w, wy, bins)]
-    before = hist.cum_hists.launches
-    got = hist.cum_hists(*args, n_nodes, n_bins)
-    want = hist.cum_hists_plain(*args, n_nodes, n_bins)
-    torch.cuda.synchronize()
-    assert hist.cum_hists.launches == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rel, w, wy, bins, n_nodes, n_bins = hist_inputs(**case)
+    _hist_check([torch.from_numpy(a).cuda() for a in (rel, w, wy, bins)],
+                n_nodes, n_bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_hist_cumsum_f32_passes_bitwise_vs_plain(name, monkeypatch):
+    """The kernel's f32 path (one class a pass), which takes a tile whose
+    weights the packed 16-bit counts cannot hold, forced on every tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    monkeypatch.setattr(hist, "PACKED", False)
+    rel, w, wy, bins, n_nodes, n_bins = hist_inputs(**EDGE_CASES[name])
+    _hist_check([torch.from_numpy(a).cuda() for a in (rel, w, wy, bins)],
+                n_nodes, n_bins)
+
+
+@pytest.mark.cuda
+def test_hist_cumsum_bitwise_on_real_fit_steps(monkeypatch):
+    """Every BFS step of a small card fit (8 trees, depth 12), RF and ET:
+    the recorded inputs through the kernel, bitwise against plain and
+    across two runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from flake16_framework_tpu_torch import rng
+    from flake16_framework_tpu_torch.ops import trees
+
+    steps = []
+
+    def recorder(*args):
+        steps.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return hist.cum_hists(*args)
+
+    monkeypatch.setattr(trees, "cum_hists", recorder)
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(1500, 16).astype(np.float32)).cuda()
+    y = x[:, 0] - x[:, 5] + 0.5 * torch.from_numpy(
+        rs.randn(1500).astype(np.float32)).cuda() > 0.8
+    w = torch.from_numpy((rs.rand(1500) > 0.1).astype(np.float32)).cuda()
+    for boot, rand in ((True, False), (False, True)):
+        trees.fit_forest_hist(x, y, w, rng.prng_key(11, "cuda"), n_trees=8,
+                              bootstrap=boot, random_splits=rand,
+                              sqrt_features=True, max_depth=12)
+    assert len(steps) > 10
+    for rel, w_s, wy, bins, n_nodes, n_bins in steps:
+        _hist_check([rel, w_s, wy, bins], n_nodes, n_bins)
 
 
 @pytest.mark.cuda
@@ -46,6 +102,9 @@ def test_hist_cumsum_rejects_bad_inputs():
         hist.cum_hists(rel, w.double(), w, bins, 4, 16)
     with pytest.raises(ValueError, match="shared memory"):
         hist.cum_hists(rel, w, w, bins, 1024, 64)
+    off = torch.zeros(21, dtype=torch.int32, device="cuda")[1:].view(2, 10)
+    with pytest.raises(ValueError, match="16-byte"):
+        hist.cum_hists(off, w, w, bins, 4, 16)
 
 
 def _bucket(r, cap, n_feat, seed, mode=None, s=0):
