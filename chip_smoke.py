@@ -146,8 +146,9 @@ def check_hist_kernel():
         raise AssertionError("hist_cumsum: two runs differ")
     del cw, cwy, again, pw, pwy
 
-    ms, host_ms, queued = _device_ms(lambda: cum_hists(*args), reps=20)
-    back_to_back_ms = _cuda_ms(lambda: cum_hists(*args), reps=20)
+    ms = _cuda_ms(lambda: cum_hists(*args), reps=20)
+    device_ms, host_ms, queued = _device_ms(lambda: cum_hists(*args),
+                                            reps=20)
     plain_ms = _cuda_ms(lambda: cum_hists_plain(*args), reps=3, warm=1)
     # Library yardstick: the one-hot contraction as one einsum per class
     # on prebuilt f32 one-hots, plus the bin cumsum.
@@ -170,8 +171,8 @@ def check_hist_kernel():
         "replaces": "flake16_framework_tpu/ops/trees.py:723",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "host_ms_per_call": host_ms,
-        "queued": queued, "back_to_back_ms": back_to_back_ms,
+        "library_ms": library_ms, "device_ms": device_ms,
+        "host_ms_per_call": host_ms, "queued": queued,
         "shape": {"trees": n_tree, "n": n, "features": n_feat,
                   "window": NODE_BATCH, "bins": N_BINS},
     }
@@ -233,8 +234,10 @@ def check_real_steps(tests_file):
     fit of each ``scores`` config at full width, recorded by
     ``record_steps``. Each step's output must be bitwise equal to the
     plain version's and to a second run's. Times the kernel over all
-    steps (CUDA events) against the sum of the steps' byte bounds, and
-    summarises the steps' in-window shares and occupied rows."""
+    steps with CUDA events, launched back to back (``sum_ms``) and queued
+    behind a sleep (``device_sum_ms``), against the sum of the steps' byte
+    bounds, and summarises the steps' in-window shares and occupied
+    rows."""
     from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
     from flake16_framework_tpu_torch.kernels.hist import (
         cum_hists, cum_hists_plain,
@@ -257,24 +260,27 @@ def check_real_steps(tests_file):
                                      f"real step of {config}")
             del got, again, want
             share, rows = step_stats(s[0], s[1], s[4])
-            ms, _, queued = _device_ms(lambda: cum_hists(*s), reps=10)
+            device_ms, _, queued = _device_ms(lambda: cum_hists(*s),
+                                              reps=10)
             per_step.append({
-                "ms": ms, "queued": queued,
+                "ms": _cuda_ms(lambda: cum_hists(*s), reps=10),
+                "device_ms": device_ms, "queued": queued,
                 "bound_ms": hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0],
                 "in_window_share": share,
                 "rows_mean": float(rows.float().mean()),
                 "rows_max": int(rows.max())})
-        sum_ms, host_ms, queued = _device_ms(lambda: launch_steps(steps),
-                                             reps=5)
+        sum_ms = _cuda_ms(lambda: launch_steps(steps), reps=5)
+        device_sum_ms, host_ms, queued = _device_ms(
+            lambda: launch_steps(steps), reps=5)
         bound = sum(p["bound_ms"] for p in per_step)
         out.append({
             "config": "/".join(config), "steps": len(steps),
             "sum_ms": sum_ms, "mean_ms": sum_ms / len(steps),
+            "device_sum_ms": device_sum_ms,
             "queued": queued and all(p["queued"] for p in per_step),
             "host_ms_per_call": host_ms / len(steps),
-            "back_to_back_sum_ms": _cuda_ms(lambda: launch_steps(steps),
-                                            reps=5),
             "bound_sum_ms": bound, "bound_share": bound / sum_ms,
+            "device_bound_share": bound / device_sum_ms,
             "in_window_share_mean": float(np.mean(
                 [p["in_window_share"] for p in per_step])),
             "rows_mean": float(np.mean([p["rows_mean"] for p in per_step])),
@@ -665,8 +671,8 @@ def main():
 
     k1 = check_hist_kernel()
     print(f"hist_cumsum bitwise == plain and repeatable; kernel "
-          f"{k1['ms']:.4f} ms of device time (back to back "
-          f"{k1['back_to_back_ms']:.4f} ms, host {k1['host_ms_per_call']:.4f} "
+          f"{k1['ms']:.4f} ms back to back (device time "
+          f"{k1['device_ms']:.4f} ms, host {k1['host_ms_per_call']:.4f} "
           f"ms a call, queued {k1['queued']}), plain "
           f"{k1['plain_ms']:.3f} ms, library {k1['library_ms']:.3f} ms, "
           f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})", flush=True)
@@ -695,12 +701,13 @@ def main():
         real = check_real_steps(tj)
         for r in real:
             print(f"hist_cumsum real steps {r['config']}: {r['steps']} "
-                  f"steps, {r['sum_ms']:.4f} ms of device time in all "
-                  f"({r['mean_ms']:.4f} ms a step; back to back "
-                  f"{r['back_to_back_sum_ms']:.4f} ms, host "
+                  f"steps, {r['sum_ms']:.4f} ms back to back in all "
+                  f"({r['mean_ms']:.4f} ms a step; device time "
+                  f"{r['device_sum_ms']:.4f} ms, host "
                   f"{r['host_ms_per_call']:.4f} ms a call, queued "
                   f"{r['queued']}), bound {r['bound_sum_ms']:.4f} ms "
-                  f"({r['bound_share']:.1%}), in-window share "
+                  f"({r['bound_share']:.1%}; of device time "
+                  f"{r['device_bound_share']:.1%}), in-window share "
                   f"{r['in_window_share_mean']:.3f}, occupied rows "
                   f"{r['rows_mean']:.1f} of {NODE_BATCH}, "
                   f"{r['steps_le_16_rows']} steps with <= 16; bitwise == "

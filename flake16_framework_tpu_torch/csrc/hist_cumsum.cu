@@ -19,10 +19,11 @@
 // tree's samples: dependent loads whose latency the stores do not cover.
 //
 // Design:
-// - Persistent grid: as many blocks as are resident at once, each walking
-//   (tree, group of G features) tiles. One pass over a tree's rel, w and
-//   wy feeds G histograms, so a step reads the sample arrays F / G times,
-//   not F times.
+// - One block of 1024 threads a (tree, group of G = 4 features) tile. One
+//   pass over a tree's rel, w and wy feeds G histograms, so a step reads
+//   the sample arrays F / G times, not F times. The tile's 131 KB of
+//   shared memory leaves one block resident per SM: at the main path's
+//   shape 400 tiles on 132 SMs, 3.03 waves.
 // - Packed integer counts. On this card an f32 shared-memory atomicAdd is
 //   a compare-and-swap loop. A cell is one 32-bit word holding both
 //   classes as 16-bit counts (w low, wy high), added with one native
@@ -40,7 +41,7 @@
 //   and the bins only for quads with an in-window sample. It marks each
 //   row it touches.
 // - Scan and store, a warp a row, B / 32 bins a lane. A marked row is
-//   read (and zeroed for the next tile), summed within the lane, scanned
+//   read (and zeroed for a second pass), summed within the lane, scanned
 //   across the warp with __shfl_up_sync and stored from registers with
 //   vector streaming stores (st.global.cs). An unmarked row is stored as
 //   zeros without touching shared memory. No serial row scan, no integer
@@ -55,7 +56,6 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <mutex>
 
 namespace {
 
@@ -114,20 +114,23 @@ struct Vec<8> {
   }
 };
 
-// Shared-memory layout: the cells [group][n_nodes][n_bins], 32 bits each
-// (a packed pair of 16-bit counts, or one class in f32), padded to whole
-// float4s; then, by tile parity, two arrays of n_nodes row marks (each
-// rounded up to 16 bytes) and two pairs of 32-bit weight totals.
-__host__ __device__ inline int cell_words(int n_nodes, int n_bins,
-                                          int group) {
-  return (group * n_nodes * n_bins + 3) & ~3;
+// Launch geometry: features a tile (a block's pass over a tree's samples
+// feeds this many histograms) and threads a block. One block a tile.
+constexpr int kGroup = 4;
+constexpr int kThreads = 1024;
+
+// Shared-memory layout: the cells [kGroup][n_nodes][n_bins], 32 bits each
+// (a packed pair of 16-bit counts, or one class in f32), a whole number of
+// float4s as kGroup is 4; then n_nodes row marks rounded up to 16 bytes,
+// and two 32-bit weight totals padded to 16 bytes.
+__host__ __device__ inline int cell_words(int n_nodes, int n_bins) {
+  return kGroup * n_nodes * n_bins;
 }
 __host__ __device__ inline int mark_stride(int n_nodes) {
   return (n_nodes + 15) & ~15;
 }
-__host__ __device__ inline int hist_smem(int n_nodes, int n_bins, int group) {
-  return cell_words(n_nodes, n_bins, group) * 4 + 2 * mark_stride(n_nodes) +
-         16;
+__host__ __device__ inline int hist_smem(int n_nodes, int n_bins) {
+  return cell_words(n_nodes, n_bins) * 4 + mark_stride(n_nodes) + 16;
 }
 
 // What a pass over the samples adds to the cells: both classes packed as
@@ -237,7 +240,7 @@ __device__ __forceinline__ bool accumulate(const Tile& tl, int mode,
 }
 
 // The scan and store of a tile, a warp a row, K bins a lane. A marked
-// row's cells are read (and zeroed for the next tile), summed within the
+// row's cells are read (and zeroed for a second pass), summed within the
 // lane and scanned across the warp; an unmarked row is stored as zeros. In
 // kPacked mode both classes go out (to cw and cwy), otherwise the one
 // class of ``mode``. ``out`` is the tile's offset in cw and cwy.
@@ -322,87 +325,68 @@ __device__ __forceinline__ void scan_store(const Tile& tl, int mode,
   }
 }
 
-// K bins a lane: K * 32 >= n_bins. Dynamic shared memory as laid out by
-// hist_smem. ``packed`` 0 sends every tile through the f32 class passes.
+// K bins a lane: K * 32 >= n_bins. One block a (tree, kGroup features)
+// tile, blockIdx.x = tree * ceil(n_feat / kGroup) + feature group; dynamic
+// shared memory as laid out by hist_smem.
 template <int K>
-__global__ void __launch_bounds__(1024, 1) hist_cumsum_kernel(
+__global__ void __launch_bounds__(kThreads, 1) hist_cumsum_kernel(
     const int32_t* __restrict__ rel, const float* __restrict__ w,
     const float* __restrict__ wy, const uint8_t* __restrict__ bin_t,
     float* __restrict__ cw, float* __restrict__ cwy, int n, int n_feat,
-    int n_nodes, int n_bins, int group, int n_tiles, int packed) {
+    int n_nodes, int n_bins) {
   extern __shared__ float4 smem4[];
   unsigned* cells = reinterpret_cast<unsigned*>(smem4);
-  uint8_t* marks = reinterpret_cast<uint8_t*>(
-      cells + cell_words(n_nodes, n_bins, group));
-  const int stride = mark_stride(n_nodes);
-  unsigned* totals = reinterpret_cast<unsigned*>(marks + 2 * stride);
-  const int n_groups = (n_feat + group - 1) / group;
+  uint8_t* mark =
+      reinterpret_cast<uint8_t*>(cells + cell_words(n_nodes, n_bins));
+  unsigned* totals =
+      reinterpret_cast<unsigned*>(mark + mark_stride(n_nodes));
+  const int n_groups = (n_feat + kGroup - 1) / kGroup;
   const int tile_cells = n_nodes * n_bins;
+  const int t = blockIdx.x / n_groups;
+  const int f0 = (blockIdx.x - t * n_groups) * kGroup;
+  const size_t row0 = static_cast<size_t>(t) * n;
+  const Tile tl{cells, mark, bin_t + static_cast<size_t>(f0) * n, n,
+                min(kGroup, n_feat - f0), n_nodes, n_bins};
+  const int32_t* rel_t = rel + row0;
+  const float* w_t = w + row0;
+  const float* wy_t = wy + row0;
+  const int head = min(n, static_cast<int>((4 - (row0 & 3)) & 3));
+  const size_t out = (static_cast<size_t>(t) * n_feat + f0) * tile_cells;
 
-  for (int i = threadIdx.x; i < hist_smem(n_nodes, n_bins, group) / 16;
+  for (int i = threadIdx.x; i < hist_smem(n_nodes, n_bins) / 16;
        i += blockDim.x)
     smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  int parity = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int t = tile / n_groups;
-    const int f0 = (tile - t * n_groups) * group;
-    const size_t row0 = static_cast<size_t>(t) * n;
-    const Tile tl{cells, marks + parity * stride,
-                  bin_t + static_cast<size_t>(f0) * n, n,
-                  min(group, n_feat - f0), n_nodes, n_bins};
-    const int32_t* rel_t = rel + row0;
-    const float* w_t = w + row0;
-    const float* wy_t = wy + row0;
-    const int head = min(n, static_cast<int>((4 - (row0 & 3)) & 3));
-    const size_t out = (static_cast<size_t>(t) * n_feat + f0) * tile_cells;
-    unsigned* tot = totals + 2 * parity;
-
-    // The other parity's marks and totals were last read before the
-    // barrier that ended the previous tile; clear them for the next one.
-    uint8_t* mark_next = marks + (1 - parity) * stride;
-    for (int r = threadIdx.x; r < n_nodes; r += blockDim.x) mark_next[r] = 0;
-    if (threadIdx.x < 2) totals[2 * (1 - parity) + threadIdx.x] = 0;
-
-    bool slow = packed == 0;
-    if (!slow) {
-      const bool bad =
-          accumulate(tl, kPacked, rel_t, w_t, wy_t, head, tot) != 0;
-      slow = __syncthreads_or(bad) || tot[0] >= kHalf || tot[1] >= kHalf;
-    }
-    if (!slow) {
-      scan_store<K>(tl, kPacked, cw, cwy, out);
-    } else {
-      // A weight that is not a small whole number, or a tile whose
-      // weights could overflow a 16-bit count: zero the marked rows, then
-      // add and store each class on its own in f32.
-      const int lane = threadIdx.x & 31;
-      for (int rr = threadIdx.x >> 5; rr < tl.gsz * n_nodes;
-           rr += blockDim.x >> 5) {
-        const int j = rr / n_nodes;
-        const int r = rr - j * n_nodes;
-        if (!tl.mark[r]) continue;
-        for (int b = lane; b < n_bins; b += 32)
-          cells[j * tile_cells + r * n_bins + b] = 0u;
-      }
-      for (int mode = kClassW; mode <= kClassWy; ++mode) {
-        __syncthreads();
-        accumulate(tl, mode, rel_t, w_t, wy_t, head, tot);
-        __syncthreads();
-        scan_store<K>(tl, mode, cw, cwy, out);
-      }
-    }
-    parity ^= 1;
+  const bool bad = accumulate(tl, kPacked, rel_t, w_t, wy_t, head, totals);
+  if (!__syncthreads_or(bad) && totals[0] < kHalf && totals[1] < kHalf) {
+    scan_store<K>(tl, kPacked, cw, cwy, out);
+    return;
+  }
+  // A weight that is not a small whole number, or a tile whose weights
+  // could overflow a 16-bit count: zero the marked rows, then add and
+  // store each class on its own in f32.
+  const int lane = threadIdx.x & 31;
+  for (int rr = threadIdx.x >> 5; rr < tl.gsz * n_nodes;
+       rr += blockDim.x >> 5) {
+    const int j = rr / n_nodes;
+    const int r = rr - j * n_nodes;
+    if (!mark[r]) continue;
+    for (int b = lane; b < n_bins; b += 32)
+      cells[j * tile_cells + r * n_bins + b] = 0u;
+  }
+  for (int mode = kClassW; mode <= kClassWy; ++mode) {
     __syncthreads();
+    accumulate(tl, mode, rel_t, w_t, wy_t, head, totals);
+    __syncthreads();
+    scan_store<K>(tl, mode, cw, cwy, out);
   }
 }
 
 constexpr int kMaxDevices = 64;
 
 using Kernel = void (*)(const int32_t*, const float*, const float*,
-                        const uint8_t*, float*, float*, int, int, int, int,
-                        int, int, int);
+                        const uint8_t*, float*, float*, int, int, int, int);
 
 int bins_per_lane(int n_bins) {
   return n_bins <= 32 ? 1 : n_bins <= 64 ? 2 : n_bins <= 128 ? 4 : 8;
@@ -424,95 +408,59 @@ std::atomic<int> smem_allowed[kMaxDevices][4];
 
 int instance(int k) { return k == 1 ? 0 : k == 2 ? 1 : k == 4 ? 2 : 3; }
 
-cudaError_t allow_smem(const void* fn, int device, int slot, int smem) {
-  if (smem <= smem_allowed[device][slot].load()) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) smem_allowed[device][slot].store(smem);
-  return err;
-}
-
-// The last occupancy query, reused while the launch shape is the same.
-struct Occupancy {
-  int device = -1, k = 0, smem = 0, threads = 0, blocks_per_sm = 0, n_sm = 0;
-};
-std::mutex occupancy_mutex;
-Occupancy last_occupancy;
-
-cudaError_t occupancy(int device, int k, int smem, int threads,
-                      int* blocks_per_sm, int* n_sm) {
-  std::lock_guard<std::mutex> lock(occupancy_mutex);
-  Occupancy& o = last_occupancy;
-  if (o.device != device || o.k != k || o.smem != smem ||
-      o.threads != threads) {
-    cudaError_t err = cudaDeviceGetAttribute(
-        &o.n_sm, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &o.blocks_per_sm, kernel_for(k), threads, smem);
-    if (err != cudaSuccess) return err;
-    o.device = device;
-    o.k = k;
-    o.smem = smem;
-    o.threads = threads;
-  }
-  *blocks_per_sm = o.blocks_per_sm;
-  *n_sm = o.n_sm;
-  return cudaSuccess;
-}
-
-cudaError_t prepare(int device, int n_nodes, int n_bins, int group,
-                    int threads, int* blocks_per_sm, int* n_sm) {
+// Makes ``device`` current and opens the kernel instance for this window
+// up to the shared memory it needs.
+cudaError_t prepare(int device, int n_nodes, int n_bins) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int k = bins_per_lane(n_bins);
-  const int smem = hist_smem(n_nodes, n_bins, group);
-  err = allow_smem(reinterpret_cast<const void*>(kernel_for(k)), device,
-                   instance(k), smem);
-  if (err != cudaSuccess) return err;
-  return occupancy(device, k, smem, threads, blocks_per_sm, n_sm);
+  const int smem = hist_smem(n_nodes, n_bins);
+  if (smem <= smem_allowed[device][instance(k)].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel_for(k)),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) smem_allowed[device][instance(k)].store(smem);
+  return err;
 }
 
 }  // namespace
 
-// Resident blocks per SM and the SM count for a launch of this shape on
+// Resident blocks per SM and the SM count for a launch at this window on
 // CUDA device ``device``; returns a CUDA error code (0 on success).
-extern "C" int hist_cumsum_occupancy(int n_nodes, int n_bins, int group,
-                                     int threads, int device,
+extern "C" int hist_cumsum_occupancy(int n_nodes, int n_bins, int device,
                                      int* blocks_per_sm, int* n_sm) {
-  return static_cast<int>(prepare(device, n_nodes, n_bins, group, threads,
-                                  blocks_per_sm, n_sm));
+  cudaError_t err = prepare(device, n_nodes, n_bins);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel_for(bins_per_lane(n_bins)), kThreads,
+        hist_smem(n_nodes, n_bins));
+  return static_cast<int>(err);
 }
 
-// Launches on ``stream`` of CUDA device ``device``: ``threads`` a block,
-// ``group`` features a tile, and ``grid`` blocks (0: as many as are
-// resident on the card at once, at most one a tile). Returns
-// cudaGetLastError() (0 on success). This library has its own CUDA
-// runtime, whose current device is not the caller's, so the device is made
-// current here. The caller allocates the outputs, checks shapes, types and
-// 16-byte alignment of rel, w and wy, and synchronises.
+// Launches on ``stream`` of CUDA device ``device``, one block of kThreads
+// a (tree, kGroup features) tile. Returns cudaGetLastError() (0 on
+// success). This library has its own CUDA runtime, whose current device
+// is not the caller's, so the device is made current here. The caller
+// allocates the outputs, checks shapes, types, shared memory and 16-byte
+// alignment of rel, w and wy, and synchronises.
 extern "C" int hist_cumsum_launch(const void* rel, const void* w,
                                   const void* wy, const void* bin_t, void* cw,
                                   void* cwy, int n_tree, int n, int n_feat,
-                                  int n_nodes, int n_bins, int group,
-                                  int threads, int grid, int packed,
-                                  int device, void* stream) {
-  int blocks_per_sm = 0, n_sm = 0;
-  cudaError_t err = prepare(device, n_nodes, n_bins, group, threads,
-                            &blocks_per_sm, &n_sm);
+                                  int n_nodes, int n_bins, int device,
+                                  void* stream) {
+  const cudaError_t err = prepare(device, n_nodes, n_bins);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks_per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_tiles = n_tree * ((n_feat + group - 1) / group);
+  const int n_tiles = n_tree * ((n_feat + kGroup - 1) / kGroup);
   if (n_tiles == 0) return 0;
-  if (grid <= 0) grid = blocks_per_sm * n_sm;
-  if (grid > n_tiles) grid = n_tiles;
-  const int k = bins_per_lane(n_bins);
-  kernel_for(k)<<<grid, threads, hist_smem(n_nodes, n_bins, group),
-                  static_cast<cudaStream_t>(stream)>>>(
+  kernel_for(bins_per_lane(n_bins))<<<n_tiles, kThreads,
+                                      hist_smem(n_nodes, n_bins),
+                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rel), static_cast<const float*>(w),
       static_cast<const float*>(wy), static_cast<const uint8_t*>(bin_t),
       static_cast<float*>(cw), static_cast<float*>(cwy), n, n_feat, n_nodes,
-      n_bins, group, n_tiles, packed);
+      n_bins);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,31 +29,24 @@ from flake16_framework_tpu_torch.kernels import build
 # Shared memory a block may use on Hopper (bytes).
 _SMEM_LIMIT = 232448
 
-# Launch geometry: features a tile (a block's pass over a tree's samples
-# feeds this many histograms), threads a block, and blocks (0: as many as
-# are resident on the card at once, the kernel's persistent grid).
+# Features a tile, as compiled into the kernel (kGroup): a block's pass
+# over a tree's samples feeds this many histograms.
 GROUP = 4
-THREADS = 1024
-GRID = 0
-# Count both classes as packed 16-bit integers where a tile's weights
-# allow it (a tile that they do not is added in f32, one class a pass);
-# False sends every tile through the f32 passes.
-PACKED = True
 
 
-def smem_bytes(n_nodes, n_bins, group):
+def smem_bytes(n_nodes, n_bins):
     """Dynamic shared memory of a block (``csrc/hist_cumsum.cu``): the
-    [group, W, B] 32-bit cells padded to whole float4s, two arrays of W row
-    marks each rounded up to 16 bytes, and two pairs of 32-bit totals."""
-    cells = (group * n_nodes * n_bins + 3) // 4 * 4
-    return cells * 4 + 2 * ((n_nodes + 15) // 16 * 16) + 16
+    [GROUP, W, B] 32-bit cells, W row marks rounded up to 16 bytes, and two
+    32-bit totals padded to 16 bytes."""
+    return GROUP * n_nodes * n_bins * 4 + (n_nodes + 15) // 16 * 16 + 16
 
 
-def check_inputs(rel, w, wy, bin_t, n_nodes, n_bins, group):
+def check_inputs(rel, w, wy, bin_t, n_nodes, n_bins):
     """Raise ValueError for inputs the kernel cannot take: wrong types or
     shapes, other devices, non-contiguous tensors, rel/w/wy not 16-byte
     aligned (the kernel reads them four samples at a time), bins outside
-    [1, 256], or a window whose histogram exceeds shared memory."""
+    [1, 256], a window whose histogram exceeds shared memory, or more
+    tiles than a grid holds."""
     n_tree, n = rel.shape
     n_feat = bin_t.shape[0]
     for name, t, dtype, shape in (("rel", rel, torch.int32, (n_tree, n)),
@@ -71,9 +64,12 @@ def check_inputs(rel, w, wy, bin_t, n_nodes, n_bins, group):
                              f"boundary")
     if not 1 <= n_bins <= 256:
         raise ValueError(f"cum_hists: n_bins must be in [1, 256], got {n_bins}")
-    if n_nodes < 1 or smem_bytes(n_nodes, n_bins, group) > _SMEM_LIMIT:
+    if n_nodes < 1 or smem_bytes(n_nodes, n_bins) > _SMEM_LIMIT:
         raise ValueError(f"cum_hists: a {n_nodes} x {n_bins} window of "
-                         f"{group} feature(s) exceeds shared memory")
+                         f"{GROUP} features exceeds shared memory")
+    if n_tree * -(-n_feat // GROUP) >= 2 ** 31:
+        raise ValueError(f"cum_hists: {n_tree} trees x {n_feat} features "
+                         f"are more tiles than a grid holds")
 
 
 def cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins):
@@ -98,7 +94,7 @@ def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
         return cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins)
     if rel.device.type != "cuda":
         raise ValueError(f"cum_hists: unsupported device {rel.device}")
-    check_inputs(rel, w, wy, bin_t, n_nodes, n_bins, GROUP)
+    check_inputs(rel, w, wy, bin_t, n_nodes, n_bins)
     n_tree, n = rel.shape
     n_feat = bin_t.shape[0]
     out = torch.empty((2, n_tree, n_feat, n_nodes, n_bins),
@@ -107,8 +103,7 @@ def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
     err = _launcher()(
         rel.data_ptr(), w.data_ptr(), wy.data_ptr(), bin_t.data_ptr(),
         cw.data_ptr(), cwy.data_ptr(), n_tree, n, n_feat, n_nodes, n_bins,
-        GROUP, THREADS, GRID, int(PACKED), rel.device.index,
-        torch.cuda.current_stream(rel.device).cuda_stream)
+        rel.device.index, torch.cuda.current_stream(rel.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_cumsum launch failed: CUDA error {err}")
     cum_hists.launches += 1
@@ -122,19 +117,19 @@ cum_hists.launches = 0
 def _launcher():
     """The C entry point, loaded (and built) once with its signature."""
     fn = build.load("hist_cumsum").hist_cumsum_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def occupancy(n_nodes, n_bins, group, threads):
-    """(resident blocks per SM, SM count) of the kernel at this window,
-    group and block size on the current CUDA device, from
+def occupancy(n_nodes, n_bins):
+    """(resident blocks per SM, SM count) of the kernel at this window on
+    the current CUDA device, from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     fn = build.load("hist_cumsum").hist_cumsum_occupancy
     fn.restype = ctypes.c_int
     blocks, n_sm = ctypes.c_int(), ctypes.c_int()
-    err = fn(n_nodes, n_bins, group, threads, torch.cuda.current_device(),
+    err = fn(n_nodes, n_bins, torch.cuda.current_device(),
              ctypes.byref(blocks), ctypes.byref(n_sm))
     if err != 0:
         raise RuntimeError(f"hist_cumsum occupancy query failed: CUDA error "

@@ -4,20 +4,35 @@ GPU on the grower's real BFS steps and on the synthetic full window of
 the two ``scores`` configs at full width (N = 4000 tests, 100 trees, depth
 48, W = 128, B = 64), recorded by ``chip_smoke.record_steps``.
 
-It prints the compiler's register, shared-memory and spill report, the
-kernel's resident blocks per SM and waves at the main path's shape, and a
-sweep of the launch settings (features a tile, threads a block,
-persistent grid or one block a tile, packed counts or f32 passes), with
-the store stream's floor (the kernel given no samples, and PyTorch's fill
-of the same outputs). Every timed result is held bitwise against the plain
-version. Times are device times (``chip_smoke._device_ms``).
+Every timed kernel is first held bitwise against the plain version, and
+against a second run, on every step. Times are taken on two yardsticks,
+both CUDA events over all of a shape's steps: launched back to back
+(``chip_smoke._cuda_ms``, host launch overhead included where it sets the
+pace) and queued behind a sleeping kernel (``chip_smoke._device_ms``,
+device time alone).
 
-Run from the repository root: ``python3 measure_hist_cumsum.py``. Prints
-the card's name and power limit and one JSON object as its last line (also
-written to ``chiprun_out/hist_cumsum_measure.json``).
+Run from the repository root:
+
+``python3 measure_hist_cumsum.py``
+    This checkout's K1 in full: the compiler's register, shared-memory and
+    spill report, the SASS atomics, resident blocks per SM and waves at the
+    main path's shape, the store stream's floor (the kernel given no
+    samples, and PyTorch's fill of the same outputs), per-step times by
+    occupied rows, the profiler's time of the RF steps, and both
+    yardsticks. Also written to ``chiprun_out/hist_cumsum_measure.json``.
+``python3 measure_hist_cumsum.py --against DIR [DIR ...]``
+    A comparison in turns with other checkouts of the repo (for example a
+    parent commit unpacked with ``git archive`` into a directory that
+    ``.gitignore`` lists): each DIR, this checkout, this checkout, then
+    each DIR in reverse order, each run in a process of its own that
+    records the steps with its own package and times its own K1. Also
+    written to ``chiprun_out/hist_cumsum_ab.json``.
+
+Each prints the card's name and power limit and one JSON object as its
+last line.
 """
 
-import itertools
+import argparse
 import json
 import os
 import subprocess
@@ -28,44 +43,27 @@ import numpy as np
 import torch
 
 from chip_smoke import (MAIN_CONFIGS, N_PROJECTS, N_TESTS, _cuda_ms,
-                        _device_ms, hist_bound_ms, record_steps, step_stats,
-                        synthetic_hist_inputs)
-from measure_treeshap_unit import sass_census
+                        _device_ms, hist_bound_ms, launch_steps,
+                        record_steps, step_stats, synthetic_hist_inputs)
 
-GROUPS = (1, 2, 3, 4, 6)
-THREADS = (512, 1024)
-ONE_BLOCK_A_TILE = 1 << 30       # a grid clamped to the number of tiles
-# Launch settings swept: (features a tile, threads a block, grid, packed
-# counts).
-SETTINGS = (
-    (1, 512, 0, True), (1, 1024, 0, True), (2, 512, 0, True),
-    (2, 1024, 0, True), (3, 512, 0, True), (3, 1024, 0, True),
-    (3, 512, ONE_BLOCK_A_TILE, True), (4, 512, 0, True),
-    (4, 1024, 0, True), (6, 1024, 0, True), (3, 512, 0, False),
-)
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("measure_hist_cumsum: no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
+def nvidia_smi():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
 
+
+def record_shapes():
+    """{shape name: [K1 inputs of each step]}: the synthetic full window,
+    and every BFS step of the first fold's fit of each ``scores`` config,
+    recorded with the ``flake16_framework_tpu_torch`` package on
+    ``sys.path``."""
     from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
-    from flake16_framework_tpu_torch.kernels import build, hist
     from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
     from flake16_framework_tpu_torch.utils.synth import make_tests_json
-
-    log = build.build("hist_cumsum")["hist_cumsum"]
-    print(f"nvcc hist_cumsum: {log.strip()}", flush=True)
-    census = sass_census(build._lib_path("hist_cumsum"))
-    atoms = {k: v for k, v in census["opcodes"].items() if "ATOM" in k}
-    print(f"sass hist_cumsum: {census['instructions']} instructions, "
-          f"atomics {atoms}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         tj = os.path.join(tmp, "tests.json")
@@ -74,80 +72,134 @@ def main():
     shapes = {"full_window": [synthetic_hist_inputs()]}
     for config in MAIN_CONFIGS:
         shapes[config[4]] = record_steps(engine, config)
-    want = {}
+    return shapes
+
+
+def check_and_time(shapes):
+    """K1 on every step of each shape, bitwise against the plain version
+    and against a second run; then its ms over all of a shape's steps on
+    both yardsticks."""
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+
+    out = {}
     for name, steps in shapes.items():
-        want[name] = [hist.cum_hists_plain(*s) for s in steps]
-    torch.cuda.synchronize()
+        for s in steps:
+            got, again, want = cum_hists(*s), cum_hists(*s), \
+                cum_hists_plain(*s)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"hist_cumsum differs from plain on "
+                                     f"{name}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"hist_cumsum: two runs differ on "
+                                     f"{name}")
+            del got, again, want
+        reps = 20 if len(steps) == 1 else 10
+        device_ms, host_ms, queued = _device_ms(lambda: launch_steps(steps),
+                                                reps=reps)
+        out[name] = {
+            "steps": len(steps),
+            "back_to_back_ms": _cuda_ms(lambda: launch_steps(steps),
+                                        reps=reps),
+            "device_ms": device_ms, "queued": queued,
+            "host_ms_per_call": host_ms / len(steps),
+            "bound_ms": sum(hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0]
+                            for s in steps)}
+    return out
 
-    def launch_all(fn, name):
-        for s in shapes[name]:
-            fn(*s)
 
-    def check(fn, what):
-        for name in shapes:
-            for s, ref in zip(shapes[name], want[name]):
-                got = fn(*s)
-                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                    raise AssertionError(f"{what} differs from plain on "
-                                         f"{name}")
+def times_only(package):
+    """One turn of a comparison: K1 of the package at ``package``."""
+    sys.path.insert(0, os.path.abspath(package))
+    import flake16_framework_tpu_torch
 
-    def time_all(fn, reps=5):
-        """Device ms over each shape's steps, and the same launched back
-        to back (host overhead included)."""
-        out = {}
-        for name in shapes:
-            ms, host_ms, queued = _device_ms(lambda: launch_all(fn, name),
-                                             reps=reps)
-            out[name] = {"ms": ms, "queued": queued,
-                         "host_ms_per_call": host_ms / len(shapes[name]),
-                         "back_to_back_ms": _cuda_ms(
-                             lambda: launch_all(fn, name), reps=reps)}
-        return out
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        flake16_framework_tpu_torch.__file__)))
+    if root != os.path.abspath(package):
+        raise AssertionError(f"the package came from {root}, not {package}")
+    times = check_and_time(record_shapes())
+    print(json.dumps({"package": package, "times": times}), flush=True)
+    return 0
 
+
+def against(others, smi):
+    """Turns of ``times_only`` processes: others, this checkout twice,
+    others reversed."""
+    turns = [*others, HERE, HERE, *reversed(others)]
+    runs = []
+    for package in turns:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times-only",
+             "--package", package], capture_output=True, text=True,
+            timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn on {package} failed "
+                               f"(exit {proc.returncode})")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        label = "this checkout" if package == HERE else package
+        for name, t in runs[-1]["times"].items():
+            print(f"{label}: {name} {t['steps']} steps, back to back "
+                  f"{t['back_to_back_ms']:.4f} ms, device "
+                  f"{t['device_ms']:.4f} ms (queued {t['queued']}), bound "
+                  f"{t['bound_ms']:.4f} ms", flush=True)
+    report = {"nvidia_smi": smi, "turns": [
+        {"package": "this checkout" if r["package"] == HERE
+         else r["package"], "times": r["times"]} for r in runs]}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "hist_cumsum_ab.json"), "w") as fd:
+        json.dump(report, fd, indent=1)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def full_report(smi):
+    """This checkout's K1 in full (see the module docstring)."""
+    from flake16_framework_tpu_torch.kernels import build, hist
+    from measure_treeshap_unit import sass_census
+
+    log = build.build("hist_cumsum")["hist_cumsum"]
+    print(f"nvcc hist_cumsum: {log.strip()}", flush=True)
+    census = sass_census(build._lib_path("hist_cumsum"))
+    atoms = {k: v for k, v in census["opcodes"].items() if "ATOM" in k}
+    print(f"sass hist_cumsum: {census['instructions']} instructions, "
+          f"atomics {atoms}", flush=True)
+
+    shapes = record_shapes()
     report = {"nvidia_smi": smi, "nvcc": log, "sass": census, "shapes": {}}
-    n_steps = {name: len(s) for name, s in shapes.items()}
     for name, steps in shapes.items():
         stats = [step_stats(s[0], s[1], s[4]) for s in steps]
         report["shapes"][name] = {
             "steps": len(steps),
-            "bound_ms": sum(hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0]
-                            for s in steps),
             "in_window_share": [st[0] for st in stats],
             "rows_mean": [float(st[1].float().mean()) for st in stats]}
-    print(f"shapes: {json.dumps({k: (v['steps'], round(v['bound_ms'], 4)) for k, v in report['shapes'].items()})}",
-          flush=True)
 
-    # Occupancy and waves at the main path's shape.
     rel, _, _, bin_t, n_nodes, n_bins = shapes["full_window"][0]
-    geometry = []
-    for group, threads in itertools.product(GROUPS, THREADS):
-        blocks, n_sm = hist.occupancy(n_nodes, n_bins, group, threads)
-        tiles = rel.shape[0] * -(-bin_t.shape[0] // group)
-        geometry.append({
-            "group": group, "threads": threads, "blocks_per_sm": blocks,
-            "sms": n_sm, "tiles": tiles,
-            "smem_bytes": hist.smem_bytes(n_nodes, n_bins, group),
-            "waves_one_block_a_tile": tiles / (blocks * n_sm) if blocks
-            else None})
-        print(f"geometry: {json.dumps(geometry[-1])}", flush=True)
-    report["geometry"] = geometry
+    blocks, n_sm = hist.occupancy(n_nodes, n_bins)
+    tiles = rel.shape[0] * -(-bin_t.shape[0] // hist.GROUP)
+    report["geometry"] = {
+        "group": hist.GROUP, "blocks_per_sm": blocks, "sms": n_sm,
+        "tiles": tiles, "smem_bytes": hist.smem_bytes(n_nodes, n_bins),
+        "waves": tiles / (blocks * n_sm)}
+    print(f"geometry: {json.dumps(report['geometry'])}", flush=True)
 
-    check(hist.cum_hists, "hist_cumsum")
-    report["default"] = time_all(hist.cum_hists)
-    print(f"default settings: {json.dumps(report['default'])}", flush=True)
+    report["times"] = check_and_time(shapes)
+    print(f"times: {json.dumps(report['times'])}", flush=True)
     per_step = {}
-    for name in ("Random Forest", "Extra Trees"):
-        per_step[name] = [_device_ms(lambda: hist.cum_hists(*s), reps=10)[0]
-                          for s in shapes[name]]
+    for name in (c[4] for c in MAIN_CONFIGS):
+        per_step[name] = [
+            _device_ms(lambda: hist.cum_hists(*s), reps=10)[0]
+            for s in shapes[name]]
         rows = np.array(report["shapes"][name]["rows_mean"])
         for label, sel in (("<= 16 rows", rows <= 16),
                            ("17-64 rows", (rows > 16) & (rows <= 64)),
                            ("> 64 rows", rows > 64)):
             if sel.any():
                 print(f"per step {name} {label}: {int(sel.sum())} steps, "
-                      f"{np.mean(np.array(per_step[name])[sel]):.4f} ms",
-                      flush=True)
-    report["per_step_ms"] = per_step
+                      f"{np.mean(np.array(per_step[name])[sel]):.4f} ms of "
+                      f"device time", flush=True)
+    report["per_step_device_ms"] = per_step
 
     # The store stream alone: the kernel launched with no samples (every
     # row unmarked, written as zeros), and PyTorch's fill of the same
@@ -156,25 +208,25 @@ def main():
     out = torch.empty((2, rel.shape[0], bin_t.shape[0], n_nodes, n_bins),
                       device=rel.device)
     stream = torch.cuda.current_stream().cuda_stream
-    floor = {"zero_fill_ms": _device_ms(out.zero_, reps=20)[0]}
-    for group, threads in itertools.product(GROUPS, THREADS):
-        floor[f"no_samples_g{group}_t{threads}_ms"] = _device_ms(
+    report["store_floor"] = {
+        "zero_fill_ms": _device_ms(out.zero_, reps=20)[0],
+        "no_samples_ms": _device_ms(
             lambda: fn(rel.data_ptr(), rel.data_ptr(), rel.data_ptr(),
-                       bin_t.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                       rel.shape[0], 0, bin_t.shape[0], n_nodes, n_bins,
-                       group, threads, 0, 1, rel.device.index, stream),
-            reps=20)[0]
+                       bin_t.data_ptr(), out[0].data_ptr(),
+                       out[1].data_ptr(), rel.shape[0], 0, bin_t.shape[0],
+                       n_nodes, n_bins, rel.device.index, stream),
+            reps=20)[0]}
     del out
-    report["store_floor"] = floor
-    print(f"store floor: {json.dumps(floor)}", flush=True)
+    print(f"store floor (device ms): {json.dumps(report['store_floor'])}",
+          flush=True)
 
     # Device time of the kernel under the profiler, over one pass of the
-    # RF steps, as a check of the queued CUDA-event times.
+    # RF steps, as a check of the CUDA-event times.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        launch_all(hist.cum_hists, "Random Forest")
+        launch_steps(shapes["Random Forest"])
         torch.cuda.synchronize()
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and "hist_cumsum" in e.key:
@@ -185,35 +237,36 @@ def main():
             print(f"profiler RF steps: {us / 1e3:.4f} ms over {e.count} "
                   f"launches", flush=True)
 
-    # The launch settings, each held bitwise against plain.
-    saved = hist.GROUP, hist.THREADS, hist.GRID, hist.PACKED
-    sweep = []
-    try:
-        for group, threads, grid, packed in SETTINGS:
-            hist.GROUP, hist.THREADS, hist.GRID = group, threads, grid
-            hist.PACKED = packed
-            what = (f"group {group} threads {threads} grid {grid} packed "
-                    f"{packed}")
-            check(hist.cum_hists, what)
-            sweep.append({"group": group, "threads": threads,
-                          "grid": "persistent" if grid == 0
-                          else "one block a tile",
-                          "packed": packed,
-                          "ms": time_all(hist.cum_hists)})
-            print(f"sweep: {json.dumps(sweep[-1])}", flush=True)
-    finally:
-        hist.GROUP, hist.THREADS, hist.GRID, hist.PACKED = saved
-    report["sweep"] = sweep
-    report["n_steps"] = n_steps
-
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "hist_cumsum_measure.json"),
               "w") as fd:
         json.dump(report, fd, indent=1)
-    print(json.dumps({"default": report["default"], "n_steps": n_steps,
-                      "bound_ms": {k: v["bound_ms"] for k, v in
-                                   report["shapes"].items()}}), flush=True)
+    print(json.dumps({"geometry": report["geometry"],
+                      "times": report["times"],
+                      "store_floor": report["store_floor"]}), flush=True)
     return 0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", nargs="+", metavar="DIR",
+                    help="other checkouts to compare with, in turns")
+    ap.add_argument("--times-only", action="store_true",
+                    help="one turn of a comparison: time the K1 of the "
+                         "package at --package")
+    ap.add_argument("--package", default=HERE,
+                    help="the checkout whose package --times-only loads")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("measure_hist_cumsum: no CUDA device", file=sys.stderr)
+        return 1
+    if args.times_only:
+        return times_only(args.package)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    if args.against:
+        return against(args.against, smi)
+    return full_report(smi)
 
 
 if __name__ == "__main__":

@@ -58,32 +58,43 @@ def test_wrapper_takes_plain_version_on_cpu_only():
         hist.cum_hists(*meta, 4, 16)
 
 
-@pytest.mark.parametrize("n_nodes,n_bins,group,want", [
-    (128, 64, 1, 128 * 64 * 4 + 2 * 128 + 16),     # the main path's window
-    (128, 64, 3, 3 * 128 * 64 * 4 + 2 * 128 + 16),
-    (1, 3, 1, 4 * 4 + 2 * 16 + 16),                # cells padded to float4
-    (5, 2, 1, 12 * 4 + 2 * 16 + 16),
+@pytest.mark.parametrize("n_nodes,n_bins,want", [
+    (128, 64, 4 * 128 * 64 * 4 + 128 + 16),        # the main path's window
+    (128, 112, 4 * 128 * 112 * 4 + 128 + 16),      # the widest B that fits
+    (1, 3, 4 * 3 * 4 + 16 + 16),                   # marks rounded up to 16
+    (17, 2, 4 * 17 * 2 * 4 + 32 + 16),
 ])
-def test_smem_bytes(n_nodes, n_bins, group, want):
-    assert hist.smem_bytes(n_nodes, n_bins, group) == want
+def test_smem_bytes(n_nodes, n_bins, want):
+    assert hist.smem_bytes(n_nodes, n_bins) == want
 
 
 def test_check_inputs_rejects_what_the_kernel_cannot_take():
     rel, w, wy, bins = (torch.from_numpy(a) for a in _inputs(0)[:4])
-    hist.check_inputs(rel, w, wy, bins, 4, 16, 1)        # accepted
+    hist.check_inputs(rel, w, wy, bins, 4, 16)        # accepted
     with pytest.raises(ValueError, match="contiguous"):
-        hist.check_inputs(rel, w.double(), wy, bins, 4, 16, 1)
+        hist.check_inputs(rel, w.double(), wy, bins, 4, 16)
     with pytest.raises(ValueError, match="contiguous"):
-        hist.check_inputs(rel, w, wy, bins[:, ::2], 4, 16, 1)
+        hist.check_inputs(rel, w, wy, bins[:, ::2], 4, 16)
     # a view that starts 4 bytes into its storage: not 16-byte aligned
     off = torch.zeros(rel.numel() + 1, dtype=torch.int32)[1:].view(rel.shape)
     assert off.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte"):
-        hist.check_inputs(off, w, wy, bins, 4, 16, 1)
+        hist.check_inputs(off, w, wy, bins, 4, 16)
     with pytest.raises(ValueError, match="n_bins"):
-        hist.check_inputs(rel, w, wy, bins, 4, 257, 1)
+        hist.check_inputs(rel, w, wy, bins, 4, 257)
     with pytest.raises(ValueError, match="shared memory"):
-        hist.check_inputs(rel, w, wy, bins, 1024, 64, 1)
+        hist.check_inputs(rel, w, wy, bins, 1024, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        hist.check_inputs(rel, w, wy, bins, 128, 64, 8)   # 256 KB
-    hist.check_inputs(rel, w, wy, bins, 128, 64, 7)       # 224 KB fits
+        hist.check_inputs(rel, w, wy, bins, 128, 128)    # 256 KB
+    hist.check_inputs(rel, w, wy, bins, 128, 112)        # 224 KB fits
+    # a grid holds fewer than 2^31 (tree, 4 features) tiles; meta tensors
+    # give the shapes without storage
+    bins16 = torch.empty((16, 1), dtype=torch.uint8, device="meta")
+    for n_tree, ok in ((2 ** 29 - 1, True), (2 ** 29, False)):
+        big = [torch.empty((n_tree, 1), dtype=d, device="meta")
+               for d in (torch.int32, torch.float32, torch.float32)]
+        if ok:
+            hist.check_inputs(*big, bins16, 4, 16)
+        else:
+            with pytest.raises(ValueError, match="tiles"):
+                hist.check_inputs(*big, bins16, 4, 16)

@@ -26,8 +26,8 @@ def _hist_check(args, n_nodes, n_bins):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [
+# The kernel's geometry cases, then the edge cases of its data.
+HIST_CASES = [
     pytest.param(dict(seed=600, n_tree=3, n=600, n_feat=5, n_nodes=4,
                       n_bins=16), id="3-600-5-4-16"),
     pytest.param(dict(seed=3000, n_tree=7, n=3000, n_feat=16, n_nodes=128,
@@ -38,7 +38,11 @@ def _hist_check(args, n_nodes, n_bins):
     pytest.param(dict(seed=7, n_tree=5, n=1001, n_feat=16, n_nodes=128,
                       n_bins=64), id="5-1001-16-128-64"),
     *[pytest.param(kw, id=name) for name, kw in EDGE_CASES.items()],
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HIST_CASES)
 def test_hist_cumsum_bitwise_vs_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -48,14 +52,17 @@ def test_hist_cumsum_bitwise_vs_plain(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(EDGE_CASES))
-def test_hist_cumsum_f32_passes_bitwise_vs_plain(name, monkeypatch):
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_hist_cumsum_f32_passes_bitwise_vs_plain(case):
     """The kernel's f32 path (one class a pass), which takes a tile whose
-    weights the packed 16-bit counts cannot hold, forced on every tile."""
+    weights the packed 16-bit counts cannot hold: every live weight is
+    given an extra half, so every tile with a live sample in its window
+    takes it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    monkeypatch.setattr(hist, "PACKED", False)
-    rel, w, wy, bins, n_nodes, n_bins = hist_inputs(**EDGE_CASES[name])
+    rel, w, wy, bins, n_nodes, n_bins = hist_inputs(**case)
+    w = np.where(w > 0, w + 0.5, 0.0).astype(np.float32)
+    wy = np.where(wy > 0, w, 0.0).astype(np.float32)
     _hist_check([torch.from_numpy(a).cuda() for a in (rel, w, wy, bins)],
                 n_nodes, n_bins)
 
