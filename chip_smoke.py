@@ -1,13 +1,18 @@
 """Chip smoke of the PyTorch/CUDA port (flake16_framework_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from ``csrc/``, holds each against its
-plain PyTorch version at the main path's shapes, drives the two main paths
-at full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
+plain PyTorch version at the main path's shapes, drives the main paths at
+full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
 depth 48) and checks what comes out: the ``scores`` verb (10 folds, 64
-bins) on two configs, and the ``shap`` verb on both paper configs. The
-histogram kernel is also held and timed on the grower's real BFS steps:
-every step of the first fold's fit of each ``scores`` config, recorded at
-full width. Both ``scores`` configs then run once more under the
-profiler, for the kernels' shares of device time.
+bins) on two ensemble configs (histogram grower) and two Decision Tree
+configs (exact grower, which must launch no histogram kernel), ``scores
+lopo`` (26 folds) on an ensemble and a Decision Tree config, and the
+``shap`` verb on both paper configs. The histogram kernel is also held and
+timed on the grower's real BFS steps: every step of the first fold's fit
+of each ensemble ``scores`` config, recorded at full width. The exact
+grower's fold-0 forest of the first Decision Tree config is held bitwise
+against the CPU's and profiled alone, for its launches a level. The
+ensemble configs and the first Decision Tree config then run once more
+under the profiler, for the kernels' shares of device time.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
@@ -39,6 +44,11 @@ MAIN_CONFIGS = (
     ("NOD", "Flake16", "Scaling", "SMOTE", "Random Forest"),
     ("OD", "Flake16", "PCA", "SMOTE Tomek", "Extra Trees"),
 )
+DT_CONFIGS = (
+    ("NOD", "Flake16", "Scaling", "SMOTE", "Decision Tree"),
+    ("OD", "Flake16", "PCA", "SMOTE Tomek", "Decision Tree"),
+)
+LOPO_CONFIGS = (MAIN_CONFIGS[0], DT_CONFIGS[0])
 N_TESTS, N_PROJECTS, N_BINS, NODE_BATCH = 4000, 26, 64, 128
 
 
@@ -178,35 +188,55 @@ def check_hist_kernel():
     }
 
 
+class _FoldZero(Exception):
+    pass
+
+
+def first_fold(engine, config, fit_name, run_fit=True):
+    """The (args, kwargs) of fold 0's call of ``trees.<fit_name>`` in a
+    ``SweepEngine`` run of ``config``, the run cut after that call (which
+    runs unless ``run_fit`` is false)."""
+    from flake16_framework_tpu_torch.ops import trees
+
+    real = getattr(trees, fit_name)
+    seen = []
+
+    def cut(*args, **kwargs):
+        seen.append((args, kwargs))
+        if run_fit:
+            real(*args, **kwargs)
+        raise _FoldZero
+
+    setattr(trees, fit_name, cut)
+    try:
+        engine.run_config(config)
+    except _FoldZero:
+        pass
+    finally:
+        setattr(trees, fit_name, real)
+    return seen[0]
+
+
 def record_steps(engine, config):
     """K1's inputs at every BFS step of the first fold's fit of ``config``
     (a ``SweepEngine`` run cut after that fit), as clones on the engine's
     device: [(rel, w, wy, bin_t, n_nodes, n_bins), ...]. Wraps the
-    grower's ``cum_hists`` and ``fit_forest_hist`` for this call only."""
+    grower's ``cum_hists`` for this call only."""
     from flake16_framework_tpu_torch.ops import trees
 
     steps = []
-    real_cum_hists, real_fit = trees.cum_hists, trees.fit_forest_hist
-
-    class OneFold(Exception):
-        pass
+    real_cum_hists = trees.cum_hists
 
     def recorder(rel, w, wy, bin_t, n_nodes, n_bins):
         steps.append((rel.clone(), w.clone(), wy.clone(), bin_t.clone(),
                       n_nodes, n_bins))
         return real_cum_hists(rel, w, wy, bin_t, n_nodes, n_bins)
 
-    def one_fit(*args, **kwargs):
-        real_fit(*args, **kwargs)
-        raise OneFold
-
-    trees.cum_hists, trees.fit_forest_hist = recorder, one_fit
+    trees.cum_hists = recorder
     try:
-        engine.run_config(config)
-    except OneFold:
-        pass
+        first_fold(engine, config, "fit_forest_hist")
     finally:
-        trees.cum_hists, trees.fit_forest_hist = real_cum_hists, real_fit
+        trees.cum_hists = real_cum_hists
     return steps
 
 
@@ -522,42 +552,73 @@ def _read_counts():
             "treeshap_unit": unit_shap.launches}
 
 
-def run_scores_path(tmp, tj):
-    """The scores verb at full width on the two configs, with the kernels'
-    launch counts read around exactly this run."""
+def _run_scores(tj, out_file, configs, **kw):
+    """``write_scores`` on ``configs``, with the kernels' launch counts set
+    to 0 just before and read just after. Returns (scores, launches, per
+    config: its wall and its K1 launches), read at each progress line."""
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
     from flake16_framework_tpu_torch.pipeline import write_scores
 
-    walls = {}
-    last = [time.time()]
+    walls, k1 = [], []
+    last = [0.0]
 
     class Progress(io.StringIO):
         def write(self, s):
             now = time.time()
-            walls[len(walls)] = now - last[0]
+            walls.append(now - last[0])
+            k1.append(cum_hists.launches - sum(k1))
             last[0] = now
             return super().write(s)
 
-    out_file = os.path.join(tmp, "scores.pkl")
     _reset_counts()
     last[0] = time.time()
-    scores = write_scores(tj, out_file, max_depth=48,
-                          configs=list(MAIN_CONFIGS),
-                          progress_out=Progress())
+    scores = write_scores(tj, out_file, max_depth=48, configs=list(configs),
+                          progress_out=Progress(), **kw)
     launches = _read_counts()
-    if launches["hist_cumsum"] == 0:
-        raise AssertionError("the scores path never launched hist_cumsum")
+    return scores, launches, walls, k1
+
+
+def _config_rows(scores, configs, walls, k1):
+    return [{"config": "/".join(k), "wall_s": walls[i],
+             "hist_cumsum_launches": k1[i],
+             "t_train_per_fold_s": scores[k][0],
+             "t_test_per_fold_s": scores[k][1],
+             "counts_fp_fn_tp": scores[k][3][:3], "f1": scores[k][3][5]}
+            for i, k in enumerate(configs)]
+
+
+def run_scores_path(tmp, tj):
+    """The scores verb at full width on the ensemble and Decision Tree
+    configs, with the kernels' launch counts read around exactly this run:
+    each ensemble config launches K1, no Decision Tree config does."""
+    configs = MAIN_CONFIGS + DT_CONFIGS
+    out_file = os.path.join(tmp, "scores.pkl")
+    scores, launches, walls, k1 = _run_scores(tj, out_file, configs)
+    for k, n in zip(configs, k1):
+        tree = k[4] == "Decision Tree"
+        if tree != (n == 0):
+            raise AssertionError(f"{k}: {n} hist_cumsum launches")
     with open(out_file, "rb") as fd:
         on_disk = pickle.load(fd)
-    _require(set(on_disk) == set(MAIN_CONFIGS), f"keys {sorted(on_disk)}")
-    _check_schema(on_disk, MAIN_CONFIGS, N_PROJECTS)
-    res = []
-    for i, k in enumerate(MAIN_CONFIGS):
-        res.append({"config": "/".join(k), "wall_s": walls[i],
-                    "t_train_per_fold_s": scores[k][0],
-                    "t_test_per_fold_s": scores[k][1],
-                    "counts_fp_fn_tp": scores[k][3][:3],
-                    "f1": scores[k][3][5]})
-    return launches, res
+    _require(set(on_disk) == set(configs), f"keys {sorted(on_disk)}")
+    _check_schema(on_disk, configs, N_PROJECTS)
+    return launches, _config_rows(scores, configs, walls, k1)
+
+
+def run_lopo_path(tmp, tj):
+    """``scores lopo`` at full width on an ensemble and a Decision Tree
+    config: one fold a project (26), written to ``scores-lopo.pkl``."""
+    out_file = os.path.join(tmp, "scores-lopo.pkl")
+    t0 = time.time()
+    scores, launches, walls, k1 = _run_scores(tj, out_file, LOPO_CONFIGS,
+                                              cv="lopo")
+    wall = time.time() - t0
+    _require(k1[0] > 0 and k1[1] == 0, f"lopo hist_cumsum launches {k1}")
+    with open(out_file, "rb") as fd:
+        on_disk = pickle.load(fd)
+    _require(set(on_disk) == set(LOPO_CONFIGS), f"keys {sorted(on_disk)}")
+    _check_schema(on_disk, LOPO_CONFIGS, N_PROJECTS)
+    return launches, _config_rows(scores, LOPO_CONFIGS, walls, k1), wall
 
 
 def run_shap_path(tmp, tj):
@@ -601,33 +662,122 @@ def run_shap_path(tmp, tj):
     return launches, res, wall
 
 
+def _device_kernels(prof):
+    """[(ms, name, launches)] of the CUDA kernels (and memsets and copies)
+    in a finished profile, largest first. Reads the profiler's raw events,
+    which gives what ``key_averages()`` gives for device events without
+    building the host-side event tree (tens of seconds a config). The raw
+    events are a private interface of the profiler: ``python3
+    measure_grid.py --check-profiler`` holds this reading against
+    ``key_averages()`` on the configs profiled here."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        ns, count = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    return sorted(((ns / 1e6, name, count)
+                   for name, (ns, count) in by_name.items()), reverse=True)
+
+
+def _profiled(fn):
+    """Run ``fn`` under the profiler (CPU and CUDA) and return its device
+    kernels (``_device_kernels``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_kernels(prof)
+
+
+def tree_levels(forest):
+    """For each tree of an exact-grower forest, the levels its grower ran,
+    which are its host reads: the deepest node's depth plus one, or the
+    depth bound where growth reached it. Child ids exceed their parent's."""
+    out = []
+    for t in range(forest.feature.shape[0]):
+        n = int(forest.n_nodes[t])
+        left = forest.left[t, :n].cpu().numpy()
+        right = forest.right[t, :n].cpu().numpy()
+        depth = np.zeros(n, np.int64)
+        for i in range(n):
+            if left[i] >= 0:
+                depth[left[i]] = depth[right[i]] = depth[i] + 1
+        deepest = int(depth.max())
+        out.append(deepest + 1 if deepest < forest.max_depth else deepest)
+    return out
+
+
+def check_exact_fold(tests_file):
+    """Fold 0 of the first Decision Tree config at full width: the exact
+    grower's forest on the card from the sweep's own resampled tensors and
+    key, bitwise against the CPU's from the same tensors. Then that fit
+    alone, unprofiled (wall) and profiled (kernel launches and busy ms), a
+    level being one host read."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.ops import trees
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    args, kwargs = first_fold(engine, DT_CONFIGS[0], "fit_forest",
+                              run_fit=False)
+    card = trees.fit_forest(*args, **kwargs)
+    cpu = trees.fit_forest(*[a.cpu() for a in args], **kwargs)
+    for fld in trees.Forest._fields[:-1]:
+        if not torch.equal(getattr(cpu, fld), getattr(card, fld).cpu()):
+            raise AssertionError(f"exact grower, {DT_CONFIGS[0]} fold 0, "
+                                 f"field {fld}: card and CPU differ")
+    levels = sum(tree_levels(card))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trees.fit_forest(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _profiled(lambda: trees.fit_forest(*args, **kwargs))
+    launches = sum(k[2] for k in kernels)
+    busy_ms = sum(k[0] for k in kernels)
+    return {
+        "config": "/".join(DT_CONFIGS[0]), "fold": 0, "bitwise": True,
+        "samples": int(args[0].shape[0]),
+        "live_samples": int((args[2] > 0).sum()),
+        "n_nodes": int(card.n_nodes[0]), "levels": levels,
+        "wall_ms": wall_ms, "wall_ms_per_level": wall_ms / levels,
+        "kernel_launches": launches, "launches_per_level": launches / levels,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms
+        / wall_ms,
+        "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                        for ms, n, c in kernels[:10]],
+    }
+
+
 def profile_config(tests_file, config, wall_s):
     """Device time by kernel over one more full-width run of ``config``,
     outside the counted main path. Kernel times are the card's own; the
     profiler slows the host, so shares of the wall use ``wall_s``, the
     config's unprofiled ``run_config`` wall (fit + predict over its 10
-    folds) from the main path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    folds) from the main path. For a Decision Tree config, ``levels`` is
+    the exact grower's levels (its host reads) over the 10 folds."""
     from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.ops import trees
     from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
 
     engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.run_config(config)
-        torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3, e.key, e.count))
-    kernels.sort(reverse=True)
+    real_fit, forests = trees.fit_forest, []
+
+    def keep(*args, **kwargs):
+        forests.append(real_fit(*args, **kwargs))
+        return forests[-1]
+
+    trees.fit_forest = keep
+    try:
+        kernels = _profiled(lambda: engine.run_config(config))
+    finally:
+        trees.fit_forest = real_fit
     busy_ms = sum(k[0] for k in kernels)
     hist_ms = sum(k[0] for k in kernels if "hist_cumsum" in k[1])
     hist_n = sum(k[2] for k in kernels if "hist_cumsum" in k[1])
@@ -638,6 +788,7 @@ def profile_config(tests_file, config, wall_s):
         "hist_cumsum_launches": hist_n,
         "hist_share_of_device": hist_ms / busy_ms if busy_ms else None,
         "device_idle_share": 1.0 - busy_ms / 1e3 / wall_s,
+        "levels": sum(sum(tree_levels(f)) for f in forests) or None,
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                         for ms, n, c in kernels[:15]],
     }
@@ -658,6 +809,13 @@ def main():
     from flake16_framework_tpu_torch.kernels import build
     from flake16_framework_tpu_torch.utils.synth import make_tests_json
 
+    phases, mark = {}, [time.time()]
+
+    def lap(name):
+        now = time.time()
+        phases[name] = now - mark[0]
+        mark[0] = now
+
     names = ("hist_cumsum", "treeshap_unit")
     t0 = time.time()
     logs = build.build(*names)
@@ -669,7 +827,9 @@ def main():
     for name in names:
         print(f"nvcc {name}: {logs[name].strip()}", flush=True)
 
+    lap("build")
     k1 = check_hist_kernel()
+    lap("hist_cumsum_full_window")
     print(f"hist_cumsum bitwise == plain and repeatable; kernel "
           f"{k1['ms']:.4f} ms back to back (device time "
           f"{k1['device_ms']:.4f} ms, host {k1['host_ms_per_call']:.4f} "
@@ -681,6 +841,7 @@ def main():
         tj = os.path.join(tmp, "tests.json")
         make_tests_json(tj, n_tests=N_TESTS, n_projects=N_PROJECTS, seed=0)
         k2 = check_unit_kernel(tj)
+        lap("treeshap_unit_buckets")
         for b in k2["buckets"]:
             print(f"treeshap_unit {b['config']} cap {b['cap']}: "
                   f"{b['paths']} paths (mean u {b['mean_u']:.2f}, o = 1 "
@@ -699,6 +860,7 @@ def main():
               f"division-form bound {k2['bound_ms_division']:.4f} ms",
               flush=True)
         real = check_real_steps(tj)
+        lap("hist_cumsum_real_steps")
         for r in real:
             print(f"hist_cumsum real steps {r['config']}: {r['steps']} "
                   f"steps, {r['sum_ms']:.4f} ms back to back in all "
@@ -713,35 +875,65 @@ def main():
                   f"{r['steps_le_16_rows']} steps with <= 16; bitwise == "
                   f"plain and repeatable on every step", flush=True)
         small = check_small_reference()
+        lap("small_reference")
         print(f"small reference: {small}", flush=True)
+        exact = check_exact_fold(tj)
+        lap("exact_fold")
+        print(f"exact grower {exact['config']} fold 0: card forest bitwise "
+              f"== CPU, {exact['n_nodes']} nodes, {exact['levels']} levels "
+              f"(host reads) over {exact['live_samples']} live of "
+              f"{exact['samples']} rows; fit {exact['wall_ms']:.1f} ms "
+              f"({exact['wall_ms_per_level']:.2f} ms a level), "
+              f"{exact['kernel_launches']} launches "
+              f"({exact['launches_per_level']:.1f} a level), busy "
+              f"{exact['device_busy_ms']:.2f} ms, idle "
+              f"{exact['device_idle_share']:.1%}", flush=True)
 
         score_launches, configs = run_scores_path(tmp, tj)
+        lap("scores_path")
         for c in configs:
             print(f"config {c['config']}: wall {c['wall_s']:.2f} s, "
+                  f"hist_cumsum launches {c['hist_cumsum_launches']}, "
                   f"F1 {c['f1']}, (FP, FN, TP) {c['counts_fp_fn_tp']}",
                   flush=True)
         print(f"scores path launches: {score_launches}", flush=True)
+        lopo_launches, lopo_cfgs, lopo_wall = run_lopo_path(tmp, tj)
+        lap("lopo_path")
+        for c in lopo_cfgs:
+            print(f"lopo {c['config']}: wall {c['wall_s']:.2f} s "
+                  f"({N_PROJECTS} folds), hist_cumsum launches "
+                  f"{c['hist_cumsum_launches']}, F1 {c['f1']}, (FP, FN, TP) "
+                  f"{c['counts_fp_fn_tp']}", flush=True)
+        print(f"lopo path launches: {lopo_launches}, wall {lopo_wall:.2f} s",
+              flush=True)
         shap_launches, shap_cfgs, shap_wall = run_shap_path(tmp, tj)
+        lap("shap_path")
         for c in shap_cfgs:
             print(f"shap {c['config']}: fit {c['fit_s']:.2f} s, explain "
                   f"{c['explain_s']:.2f} s, local accuracy max err "
                   f"{c['local_accuracy_max_err']:.3g}", flush=True)
         print(f"shap path launches: {shap_launches}, wall {shap_wall:.2f} s",
               flush=True)
-        prof = [profile_config(tj, k, 10 * (c["t_train_per_fold_s"]
-                                            + c["t_test_per_fold_s"]))
-                for k, c in zip(MAIN_CONFIGS, configs)]
+        by_name = {c["config"]: c for c in configs}
+        prof = []
+        for k in MAIN_CONFIGS + DT_CONFIGS[:1]:
+            c = by_name["/".join(k)]
+            prof.append(profile_config(tj, k, 10 * (
+                c["t_train_per_fold_s"] + c["t_test_per_fold_s"])))
+    lap("profiles")
+    print(f"phases (s): {json.dumps(phases)}", flush=True)
     for p in prof:
+        share = p["hist_share_of_device"]
         print(f"profile {p['config']}: {p['kernel_launches']} launches, "
               f"busy {p['device_busy_ms']:.1f} ms, idle "
               f"{p['device_idle_share']:.1%}, hist_cumsum "
               f"{p['hist_cumsum_ms']:.2f} ms over "
-              f"{p['hist_cumsum_launches']} launches "
-              f"({p['hist_share_of_device']:.1%} of device time)",
-              flush=True)
+              f"{p['hist_cumsum_launches']} launches ({share:.1%} of device "
+              f"time), exact-grower levels {p['levels']}", flush=True)
         print(f"profile: {json.dumps(p)}", flush=True)
 
-    paths = {"scores": score_launches, "shap": shap_launches}
+    paths = {"scores": score_launches, "lopo": lopo_launches,
+             "shap": shap_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
     kernels = {"kernels": [{k: kern[k] for k in (
@@ -751,9 +943,11 @@ def main():
     report = {"nvidia_smi": smi, "build_s": build_s, "nvcc": logs,
               "kernels": [k1, k2], "launches_by_path": paths,
               "hist_real_steps": real,
-              "small_reference": small, "scores_path": configs,
-              "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
-              "profile": prof, "torch": torch.__version__,
+              "small_reference": small, "exact_fold": exact,
+              "scores_path": configs, "lopo_path": lopo_cfgs,
+              "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
+              "profile": prof, "phases_s": phases,
+              "torch": torch.__version__,
               "cuda": torch.version.cuda}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fd:

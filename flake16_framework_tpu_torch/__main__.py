@@ -1,13 +1,11 @@
 """Command line of the port, on the GPU, reading ``tests.json`` in the
 working directory and writing there: ``python -m
-flake16_framework_tpu_torch scores`` runs the CV sweep into ``scores.pkl``
-(the Random Forest and Extra Trees configs; the Decision Tree configs need
-the exact grower, which is not ported yet), and ``... shap`` writes the
-Tree SHAP values of the two paper configs into ``shap.pkl``."""
+flake16_framework_tpu_torch scores`` runs the 10-fold CV sweep over all
+216 configs into ``scores.pkl``, ``... scores lopo`` the
+leave-one-project-out sweep into ``scores-lopo.pkl``, and ``... shap``
+writes the Tree SHAP values of the two paper configs into ``shap.pkl``."""
 
 import sys
-
-from flake16_framework_tpu_torch import config as cfg
 
 
 def main(argv=None):
@@ -18,16 +16,17 @@ def main(argv=None):
     if command not in ("scores", "shap"):
         raise ValueError(f"Unrecognized command {command!r} (this slice "
                          f"of the port has: scores, shap)")
-    if args:
-        raise ValueError(f"Unrecognized {command} option {args[0]!r}")
+    options = ("lopo",) if command == "scores" else ()
+    for a in args:
+        if a not in options:
+            raise ValueError(f"Unrecognized {command} option {a!r}")
     from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
 
     if command == "shap":
         write_shap()
         return
 
-    write_scores(configs=[k for k in cfg.iter_config_keys()
-                          if cfg.MODELS[k[4]].n_trees > 1])
+    write_scores(cv="lopo" if "lopo" in args else "stratified")
 
 
 if __name__ == "__main__":

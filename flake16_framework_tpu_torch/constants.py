@@ -3,6 +3,7 @@ subset the port needs: file names, label encoding, feature order)."""
 
 TESTS_FILE = "tests.json"
 SCORES_FILE = "scores.pkl"
+LOPO_SCORES_FILE = "scores-lopo.pkl"
 SHAP_FILE = "shap.pkl"
 
 # Label encoding: 1 = order-dependent flaky, 2 = non-order-dependent flaky.

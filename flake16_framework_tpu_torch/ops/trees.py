@@ -1,5 +1,5 @@
 """Tree ensembles: the histogram grower for Random Forest and Extra Trees,
-and predict.
+the exact sort-based grower for the single Decision Tree, and predict.
 
 A tree is a fixed-capacity structure of arrays (``Forest``, ``max_nodes``
 slots). Features are quantile-binned once; each BFS step takes the window
@@ -19,9 +19,18 @@ key ``fold_in(tree_key, node_id)`` (``rng``, bit-compatible with
 batch changes the forest, and the forest equals the JAX package's bit for
 bit.
 
-Weights are small integers, so every histogram sum is exact in f32 in any
-order. ``argmax`` takes the first maximum (the lowest boundary, the lowest
-feature), as ``jnp.argmax`` does.
+The exact grower (``fit_forest``, one tree after another) grows a tree a
+level at a time: a stable sort by node id of each feature's value-sorted
+samples puts every node's samples in one run in value order, and every
+position between two distinct values of a run is a candidate split
+(sklearn's ``splitter="best"``, midpoint thresholds). It has no kernel of
+its own: sorts, scans, gathers and scatters over [F, N]. Its loop reads
+the level's split count once a level. Which grower a config takes is
+``hist_tier_default``'s rule alone.
+
+Weights are small integers, so every histogram and prefix sum is exact in
+f32 in any order. ``argmax`` takes the first maximum (the lowest boundary,
+the lowest feature), as ``jnp.argmax`` does.
 """
 
 from typing import NamedTuple
@@ -34,6 +43,10 @@ from flake16_framework_tpu_torch.kernels.hist import cum_hists
 
 # Node-batch width of the BFS step per device type (results-neutral).
 NODE_BATCH = {"cuda": 128, "cpu": 8}
+
+# sklearn's FEATURE_THRESHOLD: two values closer than this are "equal" for
+# the exact grower's split candidates.
+FEATURE_EPS = 1e-7
 
 
 class Forest(NamedTuple):
@@ -88,6 +101,22 @@ def hist_subtract(total, side):
 
 def _exclusive_cumsum(x, dim=-1):
     return torch.cumsum(x, dim) - x
+
+
+def _fma(a, b, c):
+    """a * b + c for f32 tensors with one rounding: the JAX package's
+    ``c + a * b``, which XLA contracts into a fused multiply-add on the CPU.
+    The product is exact in f64; the f64 sum, rounded to odd with its
+    TwoSum error, then rounds to the correctly rounded f32."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full_like(s, torch.inf)
+    odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    return torch.where(even & (err != 0), odd, s).to(torch.float32)
 
 
 def _proxy_score(lw, lwy, rw, rwy, valid):
@@ -220,7 +249,7 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
             u = u_thr[iota_t[:, None], ids].permute(0, 2, 1)  # [T, F, W]
             vmin = full_edges[feat_ix, lo]
             vmax = full_edges[feat_ix, hi + 1]
-            thr_v = vmin + u * (vmax - vmin)
+            thr_v = _fma(u, vmax - vmin, vmin)
             cnt = (edges[None, :, None, :] < thr_v[..., None]).sum(-1)
             bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
             bm1 = torch.clamp(bsel - 1, 0, n_bins - 2)
@@ -372,6 +401,248 @@ def fit_forest_hist(x, y, w, key, *, n_trees, bootstrap, random_splits,
                          max_nodes=max_nodes,
                          node_batch=NODE_BATCH[x.device.type])
     return Forest(*fields, max_depth)
+
+
+def hist_tier_default(n_trees):
+    """Whether a config of ``n_trees`` trees grows on the histogram grower:
+    an ensemble does; a single tree grows on the exact grower, since with
+    no averaging over trees the bin-granular choice of candidates moved the
+    single tree's F1 (the JAX package's parity record). The only switch
+    between the two growers."""
+    return n_trees > 1
+
+
+def _run_boundaries(s_rel):
+    """(is_start, is_end) [..., N] of each sorted position's run, a
+    maximal stretch of equal node ids."""
+    diff = s_rel[..., 1:] != s_rel[..., :-1]
+    edge = torch.ones_like(s_rel[..., :1], dtype=torch.bool)
+    return torch.cat([edge, diff], -1), torch.cat([diff, edge], -1)
+
+
+def _prefix_stats(vals, is_start, is_end):
+    """(within-run inclusive prefix sum, run total) of ``vals`` [..., N] >=
+    0. Its cumsum c is nondecreasing, so c just before the latest run start
+    and c at the nearest run end spread over the run as a cummax and a
+    reversed cummin."""
+    c = torch.cumsum(vals, -1)
+    c_prev = torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1)
+    inf = torch.full_like(c, torch.inf)
+    before = torch.cummax(torch.where(is_start, c_prev, -inf), -1).values
+    at_end = torch.flip(torch.cummin(
+        torch.flip(torch.where(is_end, c, inf), [-1]), -1).values, [-1])
+    return c - before, at_end - before
+
+
+def _run_best(s_rel, score):
+    """For each node id j of the sorted ids ``s_rel`` [F, N] (values in
+    [0, N], N = parked): the best ``score`` of j's run and the lowest
+    position that reaches it, [F, N + 1] each; a run of all -inf gives its
+    start position, an absent id -inf and N. At a run's start this is the
+    JAX package's segmented suffix scan (``_segmented_suffix_best``),
+    here as two per-run scatter reductions (max, then min position)."""
+    n_feat, n = score.shape
+    best = torch.full((n_feat, n + 1), -torch.inf, dtype=score.dtype,
+                      device=score.device).scatter_reduce_(
+        1, s_rel, score, "amax")
+    pos = torch.arange(n, device=score.device).expand(n_feat, n)
+    hit = score == best.gather(1, s_rel)
+    best_p = torch.full((n_feat, n + 1), n, dtype=torch.int64,
+                        device=score.device).scatter_reduce_(
+        1, s_rel, torch.where(hit, pos, n), "amin")
+    return best, best_p
+
+
+def _node_lookup(sample_rel, w_cap):
+    """Each node slot's run start and end positions in the sorted order
+    (clamped in bounds) and whether it holds a sample, [w_cap] each. Runs
+    appear in node order in every feature's sorted array (a stable sort of
+    the same ids), so slot j's run starts at the count of samples in lower
+    slots, shared by all features."""
+    n = sample_rel.shape[0]
+    count = torch.zeros(w_cap + 1, dtype=torch.int64,
+                        device=sample_rel.device).scatter_add_(
+        0, sample_rel, torch.ones_like(sample_rel))[:w_cap]
+    pos = _exclusive_cumsum(count, 0)
+    pos_end = torch.clamp(pos + count - 1, 0, n - 1)
+    return torch.clamp(pos, max=n - 1), pos_end, count > 0
+
+
+def _fit_one_tree(x, y01, w, key, order0, xsorted, *, random_splits,
+                  max_features, max_depth, max_nodes):
+    """Grow one tree a level at a time on the exact grower. x [N, F], the
+    tree's weights w [N], its grower key [2]; order0/xsorted [F, N] each
+    feature's stable value order and sorted values. Level d draws from
+    fold_in(key, d): the feature order from kf ([N, F] uniforms), the
+    Extra Trees thresholds from kt ([F, N]). A level's node slots are the
+    window [level_base, level_base + N) and its children's [n_nodes,
+    n_nodes + 2N), so the node arrays carry 2N slots of padding. Reads one
+    number a level, its split count. Returns the Forest field tensors of
+    the tree (node axis ``max_nodes``) and its node count."""
+    dev = x.device
+    n, n_feat = x.shape
+    park = n                            # node slots are [0, n); n = parked
+    m_pad = max_nodes + 2 * n
+    feature = torch.full((m_pad,), -1, dtype=torch.int32, device=dev)
+    threshold = torch.zeros(m_pad, dtype=x.dtype, device=dev)
+    left = torch.full_like(feature, -1)
+    right = torch.full_like(feature, -1)
+    value = torch.zeros((m_pad, 2), dtype=x.dtype, device=dev)
+
+    wy = w * y01
+    sample_rel = torch.where(w > 0, 0, park)
+    w_f, wy_f = w[order0], wy[order0]
+    tot_wy0 = wy.sum()
+    value[0] = torch.stack([w.sum() - tot_wy0, tot_wy0])
+    minus_inf = torch.tensor(-torch.inf, dtype=x.dtype, device=dev)
+
+    # Every level's (kf, kt) in one batch, not two hashes a level.
+    level_keys = rng.split(rng.fold_in(
+        key, torch.arange(max_depth, device=dev)))           # [D, 2, 2]
+    n_nodes, level_base, d = 1, 0, 0
+    while d < max_depth and n_nodes > level_base:
+        kf, kt = level_keys[d].unbind(0)
+
+        # ---- (node, value) order per feature: a stable sort by node id --
+        s_rel, perm = torch.sort(sample_rel[order0], dim=1, stable=True)
+        s_val = xsorted.gather(1, perm)
+        s_w = w_f.gather(1, perm)
+        s_wy = wy_f.gather(1, perm)
+        is_start, is_end = _run_boundaries(s_rel)
+        lw_pre, tot_w = _prefix_stats(s_w, is_start, is_end)
+        lwy_pre, tot_wy = _prefix_stats(s_wy, is_start, is_end)
+        pos_j, pos_end_j, present = _node_lookup(sample_rel, n)
+        active = s_rel < park
+        v_next = torch.cat([s_val[:, 1:], s_val[:, -1:]], 1)
+
+        tot_w_j = tot_w[:, pos_j]                            # [F, N]
+        tot_wy_j = tot_wy[:, pos_j]
+        v_lo_j = s_val[:, pos_j]                             # node min
+        v_hi_j = s_val[:, pos_end_j]                         # node max
+        nc_j = present[None, :] & (v_hi_j - v_lo_j > FEATURE_EPS)
+
+        if random_splits:
+            # Extra Trees: one uniform threshold per (feature, node) in
+            # [node min, node max); the left side is a prefix of the run.
+            u = rng.uniform(kt, (n_feat, n))
+            thr_j = _fma(u, v_hi_j - v_lo_j, v_lo_j)
+            thr_j = torch.where(thr_j >= v_hi_j, v_lo_j, thr_j)  # sklearn
+            thr_s = thr_j.gather(1, torch.clamp(s_rel, max=n - 1))
+            left_i = (s_val <= thr_s) & active
+            zero = torch.zeros_like(s_w)
+            _, lw_tot = _prefix_stats(torch.where(left_i, s_w, zero),
+                                      is_start, is_end)
+            _, lwy_tot = _prefix_stats(torch.where(left_i, s_wy, zero),
+                                       is_start, is_end)
+            lw_j = lw_tot[:, pos_j]
+            lwy_j = lwy_tot[:, pos_j]
+            rw_j = tot_w_j - lw_j
+            score_j = _proxy_score(lw_j, lwy_j, rw_j, tot_wy_j - lwy_j,
+                                   nc_j & (lw_j > 0) & (rw_j > 0))
+        else:
+            # Exact best split: every position between two distinct values
+            # of a run is a candidate; the lowest best position wins.
+            rw = tot_w - lw_pre
+            valid = (active & ~is_end & (v_next - s_val > FEATURE_EPS)
+                     & (lw_pre > 0) & (rw > 0))
+            score_i = _proxy_score(lw_pre, lwy_pre, rw, tot_wy - lwy_pre,
+                                   valid)
+            best, best_p = _run_best(s_rel, score_i)
+            score_j = best[:, :n]
+            bpos_j = torch.clamp(best_p[:, :n], max=n - 1)
+            v_lo = s_val.gather(1, bpos_j)
+            v_hi = v_next.gather(1, bpos_j)
+            thr_j = (v_lo + v_hi) / 2.0
+            thr_j = torch.where(thr_j == v_hi, v_lo, thr_j)  # midpoint guard
+            lw_j = lw_pre.gather(1, bpos_j)
+            lwy_j = lwy_pre.gather(1, bpos_j)
+            score_j = torch.where(torch.isfinite(score_j), score_j, minus_inf)
+
+        # ---- feature choice (sklearn's random feature draw) --------------
+        u_f = rng.uniform(kf, (n, n_feat)) if max_features is not None \
+            else None
+        sel = _select_features(nc_j.T, u_f, max_features).T
+        score_j = torch.where(sel, score_j, minus_inf)
+        best_f = torch.argmax(score_j, 0)                    # [N]
+
+        def pick_f(t):                                       # [F,N] -> [N]
+            return t.gather(0, best_f[None])[0]
+
+        best_score = pick_f(score_j)
+        thr_node = pick_f(thr_j)
+        lw_b, lwy_b = pick_f(lw_j), pick_f(lwy_j)
+        tot_w_b, tot_wy_b = pick_f(tot_w_j), pick_f(tot_wy_j)
+
+        impure = (tot_wy_b > 0) & (tot_w_b - tot_wy_b > 0)
+        can_split = torch.isfinite(best_score) & impure & present
+        rank = _exclusive_cumsum(can_split.to(torch.int64), 0)
+        left_g = n_nodes + 2 * rank
+        can_split = can_split & (left_g + 1 < max_nodes)     # capacity
+
+        # ---- the level's window writes, then its children's covers ------
+        win = slice(level_base, level_base + n)
+        feature[win] = torch.where(can_split, best_f.to(torch.int32),
+                                   feature[win])
+        threshold[win] = torch.where(can_split, thr_node, threshold[win])
+        left[win] = torch.where(can_split, left_g.to(torch.int32), left[win])
+        right[win] = torch.where(can_split, (left_g + 1).to(torch.int32),
+                                 right[win])
+        child_vals, child_ok, _ = _emit_children(
+            can_split[None], lw_b[None], lwy_b[None], tot_w_b[None],
+            tot_wy_b[None])
+        cwin = slice(n_nodes, n_nodes + 2 * n)
+        value[cwin] = torch.where(child_ok[0, :, None], child_vals[0],
+                                  value[cwin])
+
+        # ---- route samples to children; park the rest -------------------
+        rel_safe = torch.clamp(sample_rel, max=n - 1)
+        splits_mine = can_split[rel_safe] & (sample_rel < park)
+        xv = x.gather(1, best_f[rel_safe][:, None])[:, 0]
+        go_left = xv <= thr_node[rel_safe]
+        child_rel = 2 * rank[rel_safe] + torch.where(go_left, 0, 1)
+        sample_rel = torch.where(splits_mine, child_rel, park)
+        k_splits = int(can_split.sum())         # the one host read a level
+        n_nodes, level_base, d = n_nodes + 2 * k_splits, n_nodes, d + 1
+
+    m = max_nodes
+    return (feature[:m], threshold[:m], left[:m], right[:m], value[:m],
+            n_nodes)
+
+
+def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
+               sqrt_features, max_depth=48, max_nodes=None):
+    """Fit an ensemble on the exact grower, one tree after another. x
+    [N, F] f32; y [N] bool/int; w [N] >= 0 sample weights (0 = row
+    excluded); ``key`` a threefry key [2]. Returns a ``Forest`` with a
+    [n_trees, ...] leading axis.
+
+    DecisionTree = 1 tree, no bootstrap, no random splits, all features.
+    Keys as the JAX package's: tree t's key is split(key, n_trees)[t],
+    which splits into its bootstrap key and its grower key."""
+    n, n_feat = x.shape
+    if max_nodes is None:
+        max_nodes = 2 * n
+    max_features = max(1, int(n_feat ** 0.5)) if sqrt_features else None
+    x = x.to(torch.float32)
+    y01 = y.to(x.dtype)
+    w = w.to(x.dtype)
+    # Each feature's value order, shared by every tree (weights never
+    # reorder values; parked rows are handled by the level's node ids).
+    order0 = torch.argsort(x.T, dim=1, stable=True)
+    xsorted = x.T.gather(1, order0)
+
+    kk = rng.split(rng.split(key, n_trees))
+    wt = bootstrap_weights(w, kk[:, 0]) if bootstrap \
+        else w.expand(n_trees, -1)
+    grown = [_fit_one_tree(x, y01, wt[t], kk[t, 1], order0, xsorted,
+                           random_splits=random_splits,
+                           max_features=max_features, max_depth=max_depth,
+                           max_nodes=max_nodes)
+             for t in range(n_trees)]
+    fields = [torch.stack(f) for f in list(zip(*grown))[:5]]
+    n_nodes = torch.tensor([g[5] for g in grown], dtype=torch.int32,
+                           device=x.device)
+    return Forest(*fields, n_nodes, max_depth)
 
 
 def predict_proba(forest, x):

@@ -1,6 +1,7 @@
 """Host-side replication of ``StratifiedKFold(10, shuffle=True, rs=0)``
 (a copy of the JAX package's): sklearn's assignment algorithm with numpy's
-MT19937, returned as 0/1 membership masks so every fold has one shape."""
+MT19937, returned as 0/1 membership masks so every fold has one shape; and
+the leave-one-project-out masks."""
 
 import numpy as np
 
@@ -37,4 +38,13 @@ def fold_masks(labels, n_splits=N_SPLITS, seed=0):
     """(train_mask [n_splits, N], test_mask [n_splits, N]) float32 0/1 masks."""
     test_folds = stratified_fold_ids(labels, n_splits, seed)
     test = (test_folds[None, :] == np.arange(n_splits)[:, None])
+    return (~test).astype(np.float32), test.astype(np.float32)
+
+
+def lopo_fold_masks(project_ids, n_projects):
+    """Leave-one-project-out CV masks: fold p trains on every project but
+    p and tests on p. The same (train [P, N], test [P, N]) float32 0/1
+    contract as ``fold_masks``."""
+    pids = np.asarray(project_ids)
+    test = (pids[None, :] == np.arange(n_projects)[:, None])
     return (~test).astype(np.float32), test.astype(np.float32)

@@ -1,11 +1,14 @@
-"""The per-config 10-fold CV pipeline: preprocess -> bin edges (once per
-config) -> per fold: resample -> fit -> predict -> per-project confusion.
+"""The per-config CV pipeline: preprocess -> bin edges (once per config,
+histogram grower only) -> per fold: resample -> fit -> predict ->
+per-project confusion. The folds are stratified (10) or leave one project
+out (one a project).
 
 Keys follow the JAX package exactly: the config key is
 ``fold_in(PRNGKey(SEED), config_index)`` over the canonical grid order;
 fold keys are ``split(config_key, n_folds)``; each fold key splits into the
-resampler's key and the forest's key. Folds run one after another; each
-fold's trees grow as one tree batch.
+resampler's key and the forest's key. Folds run one after another. An
+ensemble's trees grow as one tree batch on the histogram grower; the
+single Decision Tree grows on the exact grower (``trees.hist_tier_default``).
 """
 
 import time
@@ -21,29 +24,23 @@ from flake16_framework_tpu_torch.ops.metrics import (
 )
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
-from flake16_framework_tpu_torch.parallel.folds import fold_masks
+from flake16_framework_tpu_torch.parallel.folds import (
+    fold_masks, lopo_fold_masks,
+)
 
 N_FOLDS = 10
 SEED = 0  # the config keys' root seed, as the reference's
 
 
-def require_hist_model(config_keys):
-    """Raise for a config this slice cannot run: single-tree Decision Tree
-    configs need the exact sort-based grower, which the port lacks."""
-    if cfg.MODELS[config_keys[4]].n_trees <= 1:
-        raise NotImplementedError(
-            f"config {'/'.join(config_keys)}: Decision Tree configs need "
-            f"the exact sort-based grower, the next slice of the port")
-
-
 class SweepEngine:
     """Host driver of the grid on one device: ``run_config`` returns the
     reference ``scores.pkl`` value ``[t_train, t_test, scores,
-    scores_total]``; ``run_grid`` runs many configs."""
+    scores_total]``; ``run_grid`` runs many configs. ``cv="lopo"`` runs
+    leave-one-project-out CV, one fold a project."""
 
     def __init__(self, features, labels_raw, projects, project_names,
                  project_ids, *, max_depth=48, tree_overrides=None,
-                 device=None):
+                 cv="stratified", device=None):
         self.device = resolve(device)
         self.features = np.asarray(features, dtype=np.float32)
         self.labels_raw = torch.as_tensor(np.asarray(labels_raw, np.int32),
@@ -55,11 +52,19 @@ class SweepEngine:
         self.max_depth = max_depth
         self.tree_overrides = tree_overrides or {}
         labels = np.asarray(labels_raw)
+        if cv == "stratified":
+            self.n_folds = N_FOLDS
+            masks = {fl_name: fold_masks(labels == fl, self.n_folds, 0)
+                     for fl_name, fl in cfg.FLAKY_TYPES.items()}
+        elif cv == "lopo":
+            self.n_folds = len(project_names)
+            lopo = lopo_fold_masks(project_ids, self.n_folds)
+            masks = {fl_name: lopo for fl_name in cfg.FLAKY_TYPES}
+        else:
+            raise ValueError(f"unknown cv scheme {cv!r}")
         self._masks = {
-            fl_name: tuple(torch.as_tensor(m, device=self.device)
-                           for m in fold_masks(labels == fl, N_FOLDS, 0))
-            for fl_name, fl in cfg.FLAKY_TYPES.items()
-        }
+            fl_name: tuple(torch.as_tensor(m, device=self.device) for m in mm)
+            for fl_name, mm in masks.items()}
         self._index = {k: i for i, k in enumerate(cfg.iter_config_keys())}
 
     def _spec(self, model_name):
@@ -71,10 +76,9 @@ class SweepEngine:
         return spec
 
     def run_config(self, config_keys):
-        """One config's 10-fold CV; returns
-        [t_train, t_test, scores, scores_total] (per-fold mean walls)."""
+        """One config's CV; returns [t_train, t_test, scores,
+        scores_total] (per-fold mean walls)."""
         config_keys = tuple(config_keys)
-        require_hist_model(config_keys)
         fl_label, cols, prep_code, bal_code, _ = cfg.resolve_config(
             config_keys)
         spec = self._spec(config_keys[4])
@@ -88,19 +92,25 @@ class SweepEngine:
         y = self.labels_raw == fl_label
         mu, wmat = fit_preprocess(x, prep_code)
         xp = transform(x, mu, wmat)
-        edges = trees.quantile_edges(xp)
+        use_hist = trees.hist_tier_default(spec.n_trees)
+        # Bin edges once per config from the full preprocessed matrix.
+        edges = trees.quantile_edges(xp) if use_hist else None
         key = rng.fold_in(rng.prng_key(SEED, dev),
                           self._index[config_keys])
-        fold_keys = rng.split(key, N_FOLDS)
+        fold_keys = rng.split(key, self.n_folds)
+        fit_kw = dict(n_trees=spec.n_trees, bootstrap=spec.bootstrap,
+                      random_splits=spec.random_splits,
+                      sqrt_features=spec.sqrt_features,
+                      max_depth=self.max_depth, max_nodes=2 * cap)
         forests = []
-        for f in range(N_FOLDS):
+        for f in range(self.n_folds):
             kb, kf = rng.split(fold_keys[f]).unbind(0)
             xs, ys, ws = resample(xp, y, train_mask[f], bal_code, kb, cap)
-            forests.append(trees.fit_forest_hist(
-                xs, ys, ws, kf, n_trees=spec.n_trees,
-                bootstrap=spec.bootstrap, random_splits=spec.random_splits,
-                sqrt_features=spec.sqrt_features, max_depth=self.max_depth,
-                max_nodes=2 * cap, edges=edges))
+            if use_hist:
+                forests.append(trees.fit_forest_hist(xs, ys, ws, kf,
+                                                     edges=edges, **fit_kw))
+            else:
+                forests.append(trees.fit_forest(xs, ys, ws, kf, **fit_kw))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_train = time.time() - t0
@@ -112,7 +122,7 @@ class SweepEngine:
         t_test = time.time() - t0
         scores, scores_total = format_scores(counts, self.project_names,
                                              self.projects)
-        return [t_train / N_FOLDS, t_test / N_FOLDS, scores,
+        return [t_train / self.n_folds, t_test / self.n_folds, scores,
                 scores_total]
 
     def run_grid(self, config_list=None, ledger=None, progress=None):
@@ -123,8 +133,6 @@ class SweepEngine:
         if config_list is None:
             config_list = cfg.iter_config_keys()
         todo = [tuple(k) for k in config_list if tuple(k) not in scores]
-        for keys in todo:
-            require_hist_model(keys)
         for i, keys in enumerate(todo):
             scores[keys] = self.run_config(keys)
             if progress is not None:

@@ -15,7 +15,7 @@ import torch
 
 from flake16_framework_tpu_torch import config as cfg, rng
 from flake16_framework_tpu_torch.constants import (
-    SCORES_FILE, SHAP_FILE, TESTS_FILE,
+    LOPO_SCORES_FILE, SCORES_FILE, SHAP_FILE, TESTS_FILE,
 )
 from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
 from flake16_framework_tpu_torch.device import resolve
@@ -41,19 +41,23 @@ def _dump(obj, path):
     atomic_write_bytes(path, pickle.dumps(obj))
 
 
-def write_scores(tests_file=TESTS_FILE, out_file=SCORES_FILE, *,
+def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                  max_depth=48, tree_overrides=None, configs=None,
-                 progress_out=sys.stdout, device=None):
+                 progress_out=sys.stdout, cv="stratified", device=None):
     """Run the sweep over ``configs`` (key tuples, as the JAX package's
     ``write_scores`` takes them; default the whole grid) and pickle the
-    scores. Runs on ``cuda`` unless ``device`` says otherwise. Decision
-    Tree configs raise ``NotImplementedError`` before anything runs."""
+    scores. ``cv="lopo"`` runs leave-one-project-out CV; the default
+    ``out_file`` follows the scheme (``scores.pkl`` or
+    ``scores-lopo.pkl``), so a LOPO run never resumes from a stratified
+    ledger. Runs on ``cuda`` unless ``device`` says otherwise."""
+    if out_file is None:
+        out_file = SCORES_FILE if cv == "stratified" else LOPO_SCORES_FILE
     device = resolve(device)
     feats, labels, projects, names, pids = tests_to_arrays(
         load_tests(tests_file))
     engine = SweepEngine(feats, labels, projects, names, pids,
                          max_depth=max_depth, tree_overrides=tree_overrides,
-                         device=device)
+                         cv=cv, device=device)
     ledger = _load_ledger(out_file)
     t0 = time.time()
 
@@ -91,10 +95,12 @@ def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
     kb, kf = rng.split(rng.prng_key(0, dev)).unbind(0)
     xs, ys, ws = resample(xp, y, torch.ones(n, dtype=torch.float32,
                                             device=dev), bal, kb, 2 * n)
-    forest = trees.fit_forest_hist(
-        xs, ys, ws, kf, n_trees=spec.n_trees, bootstrap=spec.bootstrap,
-        random_splits=spec.random_splits, sqrt_features=spec.sqrt_features,
-        max_depth=max_depth, max_nodes=4 * n)
+    fit = trees.fit_forest_hist if trees.hist_tier_default(spec.n_trees) \
+        else trees.fit_forest
+    forest = fit(xs, ys, ws, kf, n_trees=spec.n_trees,
+                 bootstrap=spec.bootstrap, random_splits=spec.random_splits,
+                 sqrt_features=spec.sqrt_features, max_depth=max_depth,
+                 max_nodes=4 * n)
     return xp, forest
 
 

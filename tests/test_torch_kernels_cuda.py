@@ -1,9 +1,11 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
-Imports neither jax nor the JAX package, so it also runs where jax is not
-installed: ``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+exact grower's forests on the card against the CPU's. Imports neither jax
+nor the JAX package, so it also runs where jax is not installed:
+``python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py``.
 Without a CUDA device every test skips. Grades: K1 bitwise (weights
 whose sums are exact in f32) and bitwise across two runs; K2 within
-1e-5 * max|plain| + 1e-7 and bitwise across two runs."""
+1e-5 * max|plain| + 1e-7 and bitwise across two runs; exact-grower
+forests bitwise."""
 
 import numpy as np
 import pytest
@@ -198,3 +200,36 @@ def test_treeshap_unit_rejects_bad_inputs():
     wide = _bucket(8, 17, 20, seed=0)[:6]
     with pytest.raises(ValueError, match="cap must be"):
         treeshap_unit.unit_shap(*wide, torch.zeros((10, 20), device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_trees,bootstrap,random_splits,sqrt_features", [
+    (1, False, False, False),          # Decision Tree
+    (3, True, False, True),            # the exact tier's Random Forest
+    (3, False, True, True),            # the exact tier's Extra Trees
+], ids=["dt", "rf", "et"])
+def test_exact_forest_card_equals_cpu(n_trees, bootstrap, random_splits,
+                                      sqrt_features):
+    """The exact grower (no kernel of its own: sorts, scans, gathers) on
+    the card, bitwise against the CPU, at a fold's full width: 8000 rows
+    of which a tenth have weight 0, 16 features, node capacity 16000."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from flake16_framework_tpu_torch import rng
+    from flake16_framework_tpu_torch.ops import trees
+
+    rs = np.random.RandomState(5)
+    x = rs.lognormal(size=(8000, 16)).astype(np.float32)
+    x[:, 4] = np.round(x[:, 4])
+    y = (np.log(x[:, 0]) - np.log(x[:, 3]) + 0.5 * rs.randn(8000)) > 0.8
+    w = (rs.rand(8000) > 0.1).astype(np.float32)
+    forests = [trees.fit_forest(
+        torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+        torch.from_numpy(w).to(dev), rng.prng_key(4, dev), n_trees=n_trees,
+        bootstrap=bootstrap, random_splits=random_splits,
+        sqrt_features=sqrt_features, max_depth=48, max_nodes=16000)
+        for dev in ("cpu", "cuda")]
+    for fld in trees.Forest._fields[:-1]:
+        assert torch.equal(getattr(forests[0], fld),
+                           getattr(forests[1], fld).cpu()), fld
+    assert int(forests[0].n_nodes.min()) > 100

@@ -1,6 +1,6 @@
 """The slice end to end: the port's ``write_scores`` against the JAX
-package's on a synthetic tests.json, and the port's boundaries (Decision
-Tree configs, the default device, its imports, the command line).
+package's on a synthetic tests.json, and the port's boundaries (the
+default device, its imports, the command line).
 Grades: per-project counts equal for configs without PCA; total F1 within
 +/-0.01 for PCA configs."""
 
@@ -10,14 +10,17 @@ import subprocess
 import sys
 
 import jax
+import numpy as np
 import pytest
 import torch
 
 from flake16_framework_tpu import pipeline as jpipe
 from flake16_framework_tpu.utils.synth import make_tests_json
 from flake16_framework_tpu_torch import __main__ as tmain
+from flake16_framework_tpu_torch import config as tcfg
 from flake16_framework_tpu_torch import device as tdevice
 from flake16_framework_tpu_torch import pipeline as tpipe
+from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,16 +65,6 @@ def test_write_scores_matches_jax(tmp_path):
     again = tpipe.write_scores(tj, str(tmp_path / "t.pkl"), device="cpu",
                                **kw)
     assert again == got
-
-
-def test_decision_tree_raises_up_front(tmp_path):
-    tj = str(tmp_path / "tests.json")
-    make_tests_json(tj, n_tests=60, n_projects=3, seed=1)
-    cfgs = [CONFIGS[0], ("NOD", "Flake16", "None", "None", "Decision Tree")]
-    with pytest.raises(NotImplementedError, match="exact sort-based grower"):
-        tpipe.write_scores(tj, str(tmp_path / "s.pkl"), configs=cfgs,
-                           device="cpu", progress_out=io.StringIO())
-    assert not os.path.exists(tmp_path / "s.pkl")   # nothing ran
 
 
 def test_default_device_is_cuda():
@@ -122,4 +115,22 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="Unrecognized shap option"):
         tmain.main(["shap", "grid"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
-        tmain.main(["scores", "lopo"])
+        tmain.main(["scores", "planner"])
+    with pytest.raises(ValueError, match="Unrecognized scores option"):
+        tmain.main(["scores", "lopo", "fused"])
+
+
+def test_cli_scores_runs_the_whole_grid(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tpipe, "write_scores", lambda **kw: calls.append(kw))
+    tmain.main(["scores"])
+    tmain.main(["scores", "lopo"])
+    assert calls == [{"cv": "stratified"}, {"cv": "lopo"}]
+    # no ``configs``: the engine runs the whole grid, DT configs included
+    engine = SweepEngine(np.zeros((4, 16), np.float32), np.zeros(4), {},
+                         ["a", "b"], np.array([0, 0, 1, 1]), device="cpu")
+    ran = []
+    monkeypatch.setattr(engine, "run_config", lambda k: ran.append(k))
+    engine.run_grid()
+    assert ran == list(tcfg.iter_config_keys()) and len(ran) == 216
+    assert sum(k[4] == "Decision Tree" for k in ran) == 72

@@ -150,3 +150,30 @@ def test_predict_on_a_jax_forest(model):
         ttrees.predict_batch([tf, tf], torch.from_numpy(xq)).numpy(),
         np.asarray(jtrees.predict_batch(
             jax.tree.map(lambda a: jnp.stack([a, a]), jf), jnp.asarray(xq))))
+
+
+def test_et_threshold_draw_rounds_once():
+    """The JAX package's Extra Trees draw ``vmin + u * (vmax - vmin)`` is
+    one fused multiply-add on the CPU (XLA contracts it). Tree 18 of this
+    25-tree fit has a node (1956) whose draw lands on the other side of a
+    bin edge when the product and the sum are rounded apart, so the tree
+    differs unless the port's draw rounds once (``_fma``)."""
+    rs = np.random.RandomState(104)
+    x = rs.randn(4000, 16).astype(np.float32)
+    y = (x[:, 0] - x[:, 3] + 0.5 * rs.randn(4000)) > 0.5
+    w = (rs.rand(4000) > 0.15).astype(np.float32)
+    tree_key = jax.random.split(jax.random.PRNGKey(104), 25)[18:19]
+    want = jtrees.fit_forest_hist(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(w), None, n_trees=1,
+        bootstrap=False, random_splits=True, sqrt_features=True,
+        max_depth=48, tree_keys=tree_key)
+    xt = torch.from_numpy(x)
+    edges = ttrees.quantile_edges(xt)
+    bin_t = ttrees.bin_indices(xt, edges).T.to(torch.uint8).contiguous()
+    kg = rng.split(torch.from_numpy(np.asarray(tree_key, np.int64)))[:, 1]
+
+    fields = ttrees._grow_trees(
+        xt, bin_t, edges, torch.from_numpy(y).float(),
+        torch.from_numpy(w)[None], kg, random_splits=True, max_features=4,
+        max_depth=48, max_nodes=8000, node_batch=128)
+    _assert_forest_equal(ttrees.Forest(*fields, 48), want)
