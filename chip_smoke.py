@@ -14,6 +14,16 @@ against the CPU's and profiled alone, for its launches a level. The
 ensemble configs and the first Decision Tree config then run once more
 under the profiler, for the kernels' shares of device time.
 
+Three drills hold the crash tolerance of ``scores`` on the card, on an RF,
+an ET and a Decision Tree config at full width, each against the scores
+path's results: a kill drill (a SIGKILL right after the journal fsyncs
+fold 4 of the ET config, in a child process under ``supervise``, which
+restarts it to a journal replay and the uninterrupted run's scores), a
+real device-side assert in the second config's guarded run (quarantined
+as ``deterministic``, exit 23, then a resume in a fresh process that
+completes every config), and a real out-of-memory error retried once as
+``oom`` before K1 runs bitwise.
+
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
@@ -25,6 +35,7 @@ import io
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -564,18 +575,31 @@ def _run_scores(tj, out_file, configs, **kw):
 
     class Progress(io.StringIO):
         def write(self, s):
-            now = time.time()
-            walls.append(now - last[0])
-            k1.append(cum_hists.launches - sum(k1))
-            last[0] = now
+            if s.startswith("["):
+                now = time.time()
+                walls.append(now - last[0])
+                k1.append(cum_hists.launches - sum(k1))
+                last[0] = now
             return super().write(s)
 
+    log = Progress()
     _reset_counts()
     last[0] = time.time()
     scores = write_scores(tj, out_file, max_depth=48, configs=list(configs),
-                          progress_out=Progress(), **kw)
+                          progress_out=log, **kw)
     launches = _read_counts()
-    return scores, launches, walls, k1
+    return scores, launches, walls, k1, _journal_stats(log.getvalue())
+
+
+def _journal_stats(text):
+    """The journal's closing line of a ``write_scores`` log: {"n_appends",
+    "append_wall_s", "sweep_wall_s", "append_share"}."""
+    m = re.search(r"^journal: (\d+) appends in ([0-9.]+) s of ([0-9.]+) s$",
+                  text, re.M)
+    _require(m is not None, "no journal line in the log")
+    n, append_s, wall_s = int(m[1]), float(m[2]), float(m[3])
+    return {"n_appends": n, "append_wall_s": append_s,
+            "sweep_wall_s": wall_s, "append_share": append_s / wall_s}
 
 
 def _config_rows(scores, configs, walls, k1):
@@ -593,7 +617,7 @@ def run_scores_path(tmp, tj):
     each ensemble config launches K1, no Decision Tree config does."""
     configs = MAIN_CONFIGS + DT_CONFIGS
     out_file = os.path.join(tmp, "scores.pkl")
-    scores, launches, walls, k1 = _run_scores(tj, out_file, configs)
+    scores, launches, walls, k1, journal = _run_scores(tj, out_file, configs)
     for k, n in zip(configs, k1):
         tree = k[4] == "Decision Tree"
         if tree != (n == 0):
@@ -602,7 +626,9 @@ def run_scores_path(tmp, tj):
         on_disk = pickle.load(fd)
     _require(set(on_disk) == set(configs), f"keys {sorted(on_disk)}")
     _check_schema(on_disk, configs, N_PROJECTS)
-    return launches, _config_rows(scores, configs, walls, k1)
+    _require(not os.path.exists(out_file + ".journal"), "journal left")
+    return launches, _config_rows(scores, configs, walls, k1), journal, \
+        on_disk
 
 
 def run_lopo_path(tmp, tj):
@@ -610,8 +636,8 @@ def run_lopo_path(tmp, tj):
     config: one fold a project (26), written to ``scores-lopo.pkl``."""
     out_file = os.path.join(tmp, "scores-lopo.pkl")
     t0 = time.time()
-    scores, launches, walls, k1 = _run_scores(tj, out_file, LOPO_CONFIGS,
-                                              cv="lopo")
+    scores, launches, walls, k1, _ = _run_scores(tj, out_file, LOPO_CONFIGS,
+                                                 cv="lopo")
     wall = time.time() - t0
     _require(k1[0] > 0 and k1[1] == 0, f"lopo hist_cumsum launches {k1}")
     with open(out_file, "rb") as fd:
@@ -660,6 +686,179 @@ def run_shap_path(tmp, tj):
                     "max_abs_phi": float(np.abs(values).max()),
                     "n_nodes_max": int(r["forest"].n_nodes.max())})
     return launches, res, wall
+
+
+# The crash-tolerance drills run ``write_scores`` in child processes on
+# the three configs below: an RF and an ET config on K1, a Decision Tree
+# on the exact grower; all three are in the scores path, whose results are
+# the uninterrupted run they are held against.
+DRILL_CONFIGS = (MAIN_CONFIGS[0], MAIN_CONFIGS[1], DT_CONFIGS[0])
+
+# One ``write_scores`` run of the drill configs at full width. ``faulty``
+# (a config's keys joined by "/", or "") makes that config's guarded run
+# start with an out-of-range index on the card: a real device-side assert,
+# which kills the process's CUDA context. The last line is the kernels'
+# launch counts of this process.
+_DRILL_CHILD = """
+import json, sys, torch
+from flake16_framework_tpu_torch.kernels.hist import cum_hists
+from flake16_framework_tpu_torch.kernels.treeshap_unit import unit_shap
+from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+from flake16_framework_tpu_torch.pipeline import write_scores
+tests_file, out_file, configs, faulty = sys.argv[1:5]
+real = SweepEngine.run_config
+def run_config(self, keys):
+    if "/".join(keys) == faulty:
+        x = torch.zeros(4, device=self.device)
+        x[torch.tensor([10], device=self.device)] += 1.0
+    return real(self, keys)
+SweepEngine.run_config = run_config
+try:
+    write_scores(tests_file, out_file, max_depth=48,
+                 configs=[tuple(k) for k in json.loads(configs)])
+finally:
+    print("launches: " + json.dumps({"hist_cumsum": cum_hists.launches,
+                                     "treeshap_unit": unit_shap.launches}),
+          flush=True)
+"""
+
+
+def _drill(tmp, name, out_file, faulty="", inject="", supervised=False):
+    """One drill child (under ``supervise`` when asked) with its output in
+    ``<tmp>/<name>.log``. Returns (rc, history, log text)."""
+    from flake16_framework_tpu_torch.resilience.supervisor import supervise
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("F16_FAULT_INJECT", None)
+    if inject:
+        env["F16_FAULT_INJECT"] = inject
+    argv = [sys.executable, "-c", _DRILL_CHILD,
+            os.path.join(tmp, "tests.json"), out_file,
+            json.dumps(DRILL_CONFIGS), faulty]
+    log_path = os.path.join(tmp, f"{name}.log")
+    with open(log_path, "w") as log:
+        if supervised:
+            rc, history = supervise(argv, env=env, cwd=tmp, stdout=log,
+                                    stderr=subprocess.STDOUT, warn_out=log,
+                                    max_restarts=1)
+        else:
+            rc = subprocess.run(argv, env=env, cwd=tmp, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                timeout=600).returncode
+            history = []
+    with open(log_path) as fd:
+        return rc, history, fd.read()
+
+
+def _same_scores(path, ref, what):
+    """The pickle at ``path`` holds exactly the drill configs, each with
+    the scores content (v[2:]; v[:2] are wall clocks) of ``ref``."""
+    with open(path, "rb") as fd:
+        got = pickle.load(fd)
+    _require(set(got) == set(DRILL_CONFIGS), f"{what}: keys {sorted(got)}")
+    for k in DRILL_CONFIGS:
+        _require(pickle.dumps(got[k][2:]) == pickle.dumps(ref[k][2:]),
+                 f"{what}: {k} differs from the uninterrupted run")
+
+
+def run_kill_drill(tmp, ref):
+    """A SIGKILL right after the journal fsyncs fold 4 of the ET config,
+    in a child under ``supervise``: one signal-9 death, a restart that
+    replays the journal and exits 0, K1 launched in the resumed child, the
+    scores equal to the uninterrupted run's, the journal gone."""
+    from flake16_framework_tpu_torch.config import iter_config_keys
+
+    et = list(iter_config_keys()).index(DRILL_CONFIGS[1])
+    out_file = os.path.join(tmp, "scores-kill.pkl")
+    t0 = time.time()
+    rc, history, text = _drill(tmp, "kill", out_file, inject=f"{et}:4:sigkill",
+                               supervised=True)
+    wall = time.time() - t0
+    _require(rc == 0, f"kill drill: final rc {rc}\n{text[-3000:]}")
+    _require([h["signal"] for h in history] == [9],
+             f"kill drill: deaths {history}")
+    m = re.search(r"journal: replayed (\d+) completed config\(s\) and "
+                  r"(\d+) partial fold\(s\)", text)
+    _require(m is not None and int(m[1]) > 0 and int(m[2]) > 0,
+             f"kill drill: no replay line\n{text[-3000:]}")
+    _same_scores(out_file, ref, "kill drill")
+    _require(not os.path.exists(out_file + ".journal"), "journal left")
+    launches = json.loads(text.rsplit("launches: ", 1)[1].splitlines()[0])
+    _require(launches["hist_cumsum"] > 0, "no K1 launch after the restart")
+    return {"deaths": history, "rc": rc, "replayed_configs": int(m[1]),
+            "replayed_folds": int(m[2]), "resumed_child_launches": launches,
+            "journal": _journal_stats(text), "wall_s": wall}
+
+
+def run_sticky_fault_drill(tmp, ref):
+    """A real device-side assert in the guarded run of the second config:
+    that config is quarantined as ``deterministic`` after one attempt, the
+    config after it fails at once on the dead context and is quarantined
+    too, the first config is in the pickle, and the process exits with 23
+    (the pickle, the sidecar and the journal's end touch no CUDA). A child
+    in a fresh process then resumes from that pickle (``write_scores`` is
+    what ``resume`` runs) and completes every config with the
+    uninterrupted run's scores."""
+    from flake16_framework_tpu_torch.resilience import quarantine
+
+    out_file = os.path.join(tmp, "scores-fault.pkl")
+    faulty = DRILL_CONFIGS[1]
+    t0 = time.time()
+    rc, _, text = _drill(tmp, "fault", out_file, faulty="/".join(faulty))
+    _require(rc == quarantine.QUARANTINE_EXIT_CODE,
+             f"sticky fault: exit {rc}\n{text[-3000:]}")
+    side = quarantine.load_sidecar(quarantine.sidecar_path(out_file))
+    rec = side.get(faulty, {})
+    _require(rec.get("fault_class") == "deterministic"
+             and len(rec.get("attempts", ())) == 1,
+             f"sticky fault: sidecar {side}")
+    with open(out_file, "rb") as fd:
+        first = pickle.load(fd)
+    _require(DRILL_CONFIGS[0] in first and faulty not in first,
+             f"sticky fault: pickle holds {sorted(first)}")
+    _require(not os.path.exists(out_file + ".journal"), "journal left")
+    fault_s = time.time() - t0
+    rc2, _, text2 = _drill(tmp, "fault-resume", out_file)
+    _require(rc2 == 0, f"resume after the fault: exit {rc2}\n"
+             f"{text2[-3000:]}")
+    _same_scores(out_file, ref, "resume after the fault")
+    _require(quarantine.load_sidecar(quarantine.sidecar_path(out_file))
+             == {}, "sidecar not cleared by the resume")
+    return {"rc": rc, "sidecar": {"/".join(k): v for k, v in side.items()},
+            "error": rec["attempts"][0]["error"],
+            "in_pickle_after_fault": ["/".join(k) for k in first],
+            "fault_run_s": fault_s, "resume_rc": rc2,
+            "resume_s": time.time() - t0 - fault_s}
+
+
+def run_oom_drill():
+    """A guarded thunk whose first attempt allocates more than the card
+    holds and whose second runs K1 at the full window: one retry, of class
+    ``oom``, and K1's result bitwise equal to a direct call."""
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
+    from flake16_framework_tpu_torch.resilience import guard
+
+    args = synthetic_hist_inputs()
+    g = guard.DispatchGuard(policy=guard.BackoffPolicy(max_attempts=2,
+                                                       base_s=0.0),
+                            device=torch.device("cuda"))
+    calls = [0]
+
+    def thunk():
+        calls[0] += 1
+        if calls[0] == 1:
+            torch.empty(2 ** 40, dtype=torch.uint8, device="cuda")
+        return cum_hists(*args)
+
+    got = g.call(thunk, label="oom drill")
+    want = cum_hists(*args)
+    torch.cuda.synchronize()
+    _require([r["fault_class"] for r in g.retries] == ["oom"],
+             f"oom drill: retries {g.retries}")
+    _require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+             "oom drill: K1 after the retry differs from a direct call")
+    return {"retries": g.retries, "attempts": calls[0], "bitwise": True}
 
 
 def _device_kernels(prof):
@@ -889,14 +1088,40 @@ def main():
               f"{exact['device_busy_ms']:.2f} ms, idle "
               f"{exact['device_idle_share']:.1%}", flush=True)
 
-        score_launches, configs = run_scores_path(tmp, tj)
+        score_launches, configs, journal, ref = run_scores_path(tmp, tj)
         lap("scores_path")
         for c in configs:
             print(f"config {c['config']}: wall {c['wall_s']:.2f} s, "
                   f"hist_cumsum launches {c['hist_cumsum_launches']}, "
                   f"F1 {c['f1']}, (FP, FN, TP) {c['counts_fp_fn_tp']}",
                   flush=True)
-        print(f"scores path launches: {score_launches}", flush=True)
+        print(f"scores path launches: {score_launches}; journal "
+              f"{journal['n_appends']} appends in "
+              f"{journal['append_wall_s']:.6f} s of "
+              f"{journal['sweep_wall_s']:.3f} s "
+              f"({journal['append_share']:.3%})", flush=True)
+        kill = run_kill_drill(tmp, ref)
+        lap("kill_drill")
+        kj = kill["journal"]
+        print(f"kill drill: deaths {kill['deaths']}, final rc {kill['rc']}, "
+              f"replayed {kill['replayed_configs']} config(s) and "
+              f"{kill['replayed_folds']} fold(s), resumed child launches "
+              f"{kill['resumed_child_launches']}, scores == uninterrupted; "
+              f"resumed child's journal n_appends {kj['n_appends']} "
+              f"append_wall_s {kj['append_wall_s']:.6f} of "
+              f"{kj['sweep_wall_s']:.3f} s ({kj['append_share']:.3%})",
+              flush=True)
+        sticky = run_sticky_fault_drill(tmp, ref)
+        lap("sticky_fault_drill")
+        print(f"sticky fault: exit {sticky['rc']}, sidecar "
+              f"{json.dumps(sticky['sidecar'])}, in the pickle "
+              f"{sticky['in_pickle_after_fault']}; resume exit "
+              f"{sticky['resume_rc']}, scores == uninterrupted", flush=True)
+        oom = run_oom_drill()
+        lap("oom_drill")
+        print(f"oom drill: {oom['attempts']} attempts, retries "
+              f"{json.dumps(oom['retries'])}, K1 bitwise == direct call",
+              flush=True)
         lopo_launches, lopo_cfgs, lopo_wall = run_lopo_path(tmp, tj)
         lap("lopo_path")
         for c in lopo_cfgs:
@@ -933,7 +1158,8 @@ def main():
         print(f"profile: {json.dumps(p)}", flush=True)
 
     paths = {"scores": score_launches, "lopo": lopo_launches,
-             "shap": shap_launches}
+             "shap": shap_launches,
+             "kill_drill_resumed_child": kill["resumed_child_launches"]}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
     kernels = {"kernels": [{k: kern[k] for k in (
@@ -944,7 +1170,9 @@ def main():
               "kernels": [k1, k2], "launches_by_path": paths,
               "hist_real_steps": real,
               "small_reference": small, "exact_fold": exact,
-              "scores_path": configs, "lopo_path": lopo_cfgs,
+              "scores_path": configs, "scores_path_journal": journal,
+              "kill_drill": kill, "sticky_fault_drill": sticky,
+              "oom_drill": oom, "lopo_path": lopo_cfgs,
               "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,

@@ -2,10 +2,35 @@
 working directory and writing there: ``python -m
 flake16_framework_tpu_torch scores`` runs the 10-fold CV sweep over all
 216 configs into ``scores.pkl``, ``... scores lopo`` the
-leave-one-project-out sweep into ``scores-lopo.pkl``, and ``... shap``
-writes the Tree SHAP values of the two paper configs into ``shap.pkl``."""
+leave-one-project-out sweep into ``scores-lopo.pkl``, ``... resume
+[lopo]`` continues a killed sweep from its journal or partial pickle, and
+``... shap`` writes the Tree SHAP values of the two paper configs into
+``shap.pkl``. ``scores`` and ``resume`` exit with 23 when configs were
+quarantined (``scores.pkl.quarantine.json`` lists them)."""
 
+import os
 import sys
+
+# Options of the JAX package's ``scores`` that the port does not have yet,
+# and what brings them (ROADMAP.md, queue A).
+_LATER = {
+    "fused": "the plan executor (ROADMAP.md §A 2)",
+    "planner": "the plan executor (ROADMAP.md §A 2)",
+    "dispatch=": "the plan executor (ROADMAP.md §A 2)",
+    "profile=": "the port's telemetry (ROADMAP.md §A 6)",
+}
+
+
+def _scores_kwargs(command, args):
+    for a in args:
+        if a == "lopo":
+            continue
+        head, eq, _ = a.partition("=")
+        later = _LATER.get(head + eq)
+        raise ValueError(f"Unrecognized {command} option {a!r}" + (
+            f": not in the port yet; it comes with {later}" if later
+            else ""))
+    return {"cv": "lopo" if "lopo" in args else "stratified"}
 
 
 def main(argv=None):
@@ -13,20 +38,35 @@ def main(argv=None):
     if not argv:
         raise ValueError("No command given")
     command, *args = argv
-    if command not in ("scores", "shap"):
+    if command not in ("scores", "resume", "shap"):
         raise ValueError(f"Unrecognized command {command!r} (this slice "
-                         f"of the port has: scores, shap)")
-    options = ("lopo",) if command == "scores" else ()
-    for a in args:
-        if a not in options:
-            raise ValueError(f"Unrecognized {command} option {a!r}")
+                         f"of the port has: scores, resume, shap)")
     from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
 
     if command == "shap":
+        for a in args:
+            raise ValueError(f"Unrecognized shap option {a!r}")
         write_shap()
         return
+    kw = _scores_kwargs(command, args)
+    if command == "resume":
+        # The same sweep as ``scores``, but it requires resume state, so
+        # a mistyped invocation never silently starts from scratch.
+        from flake16_framework_tpu_torch.constants import (
+            LOPO_SCORES_FILE, SCORES_FILE,
+        )
+        from flake16_framework_tpu_torch.resilience.journal import (
+            journal_path,
+        )
 
-    write_scores(cv="lopo" if "lopo" in args else "stratified")
+        out_file = LOPO_SCORES_FILE if kw["cv"] == "lopo" else SCORES_FILE
+        jpath = journal_path(out_file)
+        if not (os.path.exists(jpath) or os.path.exists(out_file)):
+            raise ValueError(
+                f"resume: no resume state — neither {jpath} nor "
+                f"{out_file} exists (run `scores` for a fresh sweep)")
+    # QuarantinedConfigs is a SystemExit: the process exits with 23.
+    write_scores(**kw)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """The verbs. ``scores``: the 10-fold CV sweep over the grid, written as
 the reference-schema ``scores.pkl`` ({config_keys: [t_train, t_test,
-scores, scores_total]}); a partial ``scores.pkl`` is reloaded and its
-configs are skipped. ``shap``: Tree SHAP values of the two paper configs,
-written as ``shap.pkl`` (a list of two float32 [N, F] arrays in
+scores, scores_total]}); the configs of an earlier run's ``scores.pkl``
+are skipped, and a write-ahead journal beside it resumes a killed sweep at
+fold granularity. ``shap``: Tree SHAP values of the two paper
+configs, written as ``shap.pkl`` (a list of two float32 [N, F] arrays in
 ``config.SHAP_CONFIGS`` order)."""
 
 import os
 import pickle
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -22,19 +24,62 @@ from flake16_framework_tpu_torch.device import resolve
 from flake16_framework_tpu_torch.ops import trees, treeshap
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
-from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+from flake16_framework_tpu_torch.parallel.sweep import SEED, SweepEngine
+from flake16_framework_tpu_torch.resilience import inject as rinject
+from flake16_framework_tpu_torch.resilience import journal as rjournal
+from flake16_framework_tpu_torch.resilience import quarantine as rquarantine
 from flake16_framework_tpu_torch.utils.synth import atomic_write_bytes
 
-CHECKPOINT_EVERY = 12  # configs between partial ``scores.pkl`` dumps
-
-
-def _load_ledger(out_file):
+def _load_ledger(out_file, warn_out=sys.stderr):
+    """The pickle checkpoint as a resume source. A torn or corrupt pickle,
+    or one that is not a dict, WARNS and restarts all configs rather than
+    aborting the sweep; entries that do not carry the reference 4-element
+    value schema are dropped individually, with a warning."""
     if not os.path.exists(out_file):
         return {}
-    with open(out_file, "rb") as fd:
-        ledger = pickle.load(fd)
-    return {k: v for k, v in ledger.items()
-            if isinstance(v, (list, tuple)) and len(v) == 4}
+    try:
+        with open(out_file, "rb") as fd:
+            ledger = pickle.load(fd)
+    except (OSError, EOFError, pickle.UnpicklingError, AttributeError,
+            ImportError, IndexError, ValueError) as e:
+        warn_out.write(
+            f"warning: checkpoint ledger {out_file} unreadable "
+            f"({type(e).__name__}: {e}); restarting all configs\n")
+        return {}
+    if not isinstance(ledger, dict):
+        warn_out.write(
+            f"warning: checkpoint ledger {out_file} is not a dict "
+            f"({type(ledger).__name__}); restarting all configs\n")
+        return {}
+    bad = [k for k, v in ledger.items()
+           if not (isinstance(v, (list, tuple)) and len(v) == 4)]
+    for k in bad:
+        del ledger[k]
+    if bad:
+        warn_out.write(
+            f"warning: dropped {len(bad)} malformed ledger entr"
+            f"{'y' if len(bad) == 1 else 'ies'} from {out_file}; "
+            f"those configs restart\n")
+    return ledger
+
+
+def _journal_fingerprint(engine, *, cv, max_depth, tree_overrides):
+    """The run identity a journal must match to be replayed: everything
+    that changes fold keys, fold membership, or per-fold counts (the JAX
+    package's keys, so either package replays the other's journal). The
+    data CRCs are over the host arrays: int32 labels, float32 features."""
+    return {
+        "schema": rjournal.SCHEMA,
+        "seed": SEED,
+        "cv": cv,
+        "n_folds": engine.n_folds,
+        "max_depth": max_depth,
+        "grower": "hist",
+        "tree_overrides": sorted((tree_overrides or {}).items()),
+        "data": [list(engine.features.shape),
+                 zlib.crc32(engine.labels_host.tobytes()),
+                 zlib.crc32(engine.features.tobytes())],
+    }
 
 
 def _dump(obj, path):
@@ -49,7 +94,19 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     scores. ``cv="lopo"`` runs leave-one-project-out CV; the default
     ``out_file`` follows the scheme (``scores.pkl`` or
     ``scores-lopo.pkl``), so a LOPO run never resumes from a stratified
-    ledger. Runs on ``cuda`` unless ``device`` says otherwise."""
+    ledger. Runs on ``cuda`` unless ``device`` says otherwise.
+
+    Crash tolerance: a write-ahead journal rides beside the pickle at
+    ``<out_file>.journal`` — fsync'd,
+    checksummed records at fold granularity. A killed run resumes exactly
+    its unfinished (config, fold) pairs with the same keys, so the final
+    pickle's scores equal an uninterrupted run's; the journal is deleted
+    once the final pickle is on disk. A second live resumer fails fast
+    with ``resilience.JournalLocked``. Every config runs under the
+    dispatch guard; configs that exhaust their attempts are left out of
+    the pickle, recorded in ``<out_file>.quarantine.json``, and
+    ``QuarantinedConfigs`` (exit code 23) is raised once everything is
+    on disk."""
     if out_file is None:
         out_file = SCORES_FILE if cv == "stratified" else LOPO_SCORES_FILE
     device = resolve(device)
@@ -59,17 +116,49 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                          max_depth=max_depth, tree_overrides=tree_overrides,
                          cv=cv, device=device)
     ledger = _load_ledger(out_file)
+    fp = _journal_fingerprint(engine, cv=cv, max_depth=max_depth,
+                              tree_overrides=tree_overrides)
+    jr = rjournal.SweepJournal.open(rjournal.journal_path(out_file), fp,
+                                    plan=rinject.plan_from_env())
+    if jr.ledger or jr.partial:
+        progress_out.write(
+            f"journal: replayed {len(jr.ledger)} completed config(s) "
+            f"and {sum(len(v) for v in jr.partial.values())} partial "
+            f"fold(s) from {rjournal.journal_path(out_file)}\n")
+    # The journal wins where the two disagree: the pickle is written only
+    # when a run ends.
+    ledger.update(jr.ledger)
+    engine.journal = jr
     t0 = time.time()
 
     def progress(i, total, keys, live_scores):
         progress_out.write(
             f"[{i}/{total}] {', '.join(keys)} ({time.time() - t0:.1f}s "
             f"elapsed)\n")
-        if i % CHECKPOINT_EVERY == 0:
-            _dump(live_scores, out_file)
 
-    scores = engine.run_grid(configs, ledger=ledger, progress=progress)
+    try:
+        scores = engine.run_grid(configs, ledger=ledger, progress=progress)
+    except BaseException:
+        # The journal stays on disk (it is the resume state); its fd and
+        # lock are released for the next run.
+        jr.close(remove=False)
+        raise
     _dump(scores, out_file)
+    # The durable pickle supersedes the journal. Quarantined configs are
+    # absent from both, so the next run re-attempts exactly them.
+    jr.finalize()
+    progress_out.write(
+        f"journal: {jr.n_appends} appends in {jr.append_wall_s:.6f} s "
+        f"of {time.time() - t0:.3f} s\n")
+    rquarantine.update_sidecar(rquarantine.sidecar_path(out_file),
+                               engine.quarantined, completed=scores.keys())
+    if engine.quarantined:
+        for keys, rec in sorted(engine.quarantined.items()):
+            progress_out.write(
+                f"QUARANTINED {'/'.join(keys)} [{rec['fault_class']}] "
+                f"after {len(rec['attempts'])} attempt(s)\n")
+        raise rquarantine.QuarantinedConfigs(engine.quarantined,
+                                             scores=scores)
     return scores
 
 

@@ -3,10 +3,11 @@ runs it: ``python -m flake16_framework_tpu_torch scores`` in a directory
 that holds only a synthetic ``tests.json`` (``utils/synth.py``, seed 0,
 N = 4000 tests over 26 projects), all 216 configs, 10 folds, depth 48.
 
-Prints the card's name and power limit, the command's wall, and the sums
+Prints the card's name and power limit, the command's wall, the sums
 of the configs' own walls (10 x (t_train + t_test), the per-fold means of
-``scores.pkl``) by model, and checks the pickle's schema. Run from the
-repository root: ``python3 measure_grid.py``; details go to
+``scores.pkl``) by model, and the write-ahead journal's appends and their
+wall (its closing line in the log), and checks the pickle's schema. Run
+from the repository root: ``python3 measure_grid.py``; details go to
 ``chiprun_out/measure_grid.json`` and the command's output to
 ``chiprun_out/measure_grid.log``. Needs one CUDA device; exits non-zero
 without one.
@@ -29,6 +30,7 @@ import json
 import math
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -227,6 +229,14 @@ def measure_grid(smi):
             return 1
         with open(os.path.join(tmp, "scores.pkl"), "rb") as fd:
             scores = pickle.load(fd)
+    with open(log_path) as fd:
+        m = re.search(r"^journal: (\d+) appends in ([0-9.]+) s of "
+                      r"([0-9.]+) s$", fd.read(), re.M)
+    if m is None:
+        raise AssertionError(f"no journal line in {log_path}")
+    journal = {"n_appends": int(m[1]), "append_wall_s": float(m[2]),
+               "sweep_wall_s": float(m[3]),
+               "append_share": float(m[2]) / float(m[3])}
 
     grid = list(cfg.iter_config_keys())
     if sorted(scores) != sorted(grid):
@@ -254,7 +264,7 @@ def measure_grid(smi):
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "configs": len(scores), "wall_s": wall,
               "config_sum_s": sum(m["sum_s"] for m in by_model.values()),
-              "by_model": by_model}
+              "by_model": by_model, "journal": journal}
     _write_report("measure_grid.json", report)
     return 0
 

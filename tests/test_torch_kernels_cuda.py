@@ -233,3 +233,102 @@ def test_exact_forest_card_equals_cpu(n_trees, bootstrap, random_splits,
         assert torch.equal(getattr(forests[0], fld),
                            getattr(forests[1], fld).cpu()), fld
     assert int(forests[0].n_nodes.min()) > 100
+
+
+@pytest.mark.cuda
+def test_classify_real_cuda_oom():
+    """A real allocator failure on the card is ``oom`` (by its type), and
+    the card still works after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from flake16_framework_tpu_torch.resilience import faults
+
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(2 ** 40, dtype=torch.uint8, device="cuda")
+    assert faults.classify(ei.value) == faults.OOM
+    torch.cuda.empty_cache()
+    assert int(torch.ones(4, device="cuda").sum()) == 4
+
+
+_DEVICE_ASSERT = """
+import torch
+from flake16_framework_tpu_torch.resilience import faults
+x = torch.zeros(4, device="cuda")
+try:
+    x[torch.tensor([10], device="cuda")] += 1
+    torch.cuda.synchronize()
+    print("no fault")
+except Exception as e:
+    print(type(e).__name__, faults.classify(e))
+    try:
+        torch.ones(1, device="cuda").sum().item()
+        print("context alive")
+    except Exception as e2:
+        print("context dead", faults.classify(e2))
+"""
+
+
+@pytest.mark.cuda
+def test_classify_real_device_side_assert():
+    """A real device-side assert (an out-of-range CUDA index), caught in a
+    process of its own since it kills the CUDA context: ``deterministic``,
+    and so is the next CUDA call's error in that process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _DEVICE_ASSERT],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    lines = out.stdout.split("\n")
+    assert lines[0].split()[-1] == "deterministic", out.stdout + out.stderr
+    assert lines[1] == "context dead deterministic", out.stdout
+
+
+@pytest.mark.cuda
+def test_run_config_with_journal_equals_without(tmp_path, monkeypatch):
+    """One RF config at full width (N = 4000 over 26 projects, 100 trees,
+    depth 48) on the card: the fold-granular journal path gives the
+    scores of the path without a journal, journals its 10 folds, and a
+    second engine resumes the config from those folds alone, fitting
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pickle
+
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.ops import trees
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+    from flake16_framework_tpu_torch.resilience import journal as rjournal
+    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+
+    tj = str(tmp_path / "tests.json")
+    make_tests_json(tj, n_tests=4000, n_projects=26, seed=0)
+    arrays = tests_to_arrays(load_tests(tj))
+    keys = ("NOD", "Flake16", "Scaling", "SMOTE", "Random Forest")
+    engine = SweepEngine(*arrays)
+    plain = engine.run_config(keys)
+    path = str(tmp_path / "scores.pkl.journal")
+    jr = rjournal.SweepJournal.open(path, ("probe",), warn_out=None)
+    # as if killed between the last fold record and the config record
+    jr.record_config = lambda config_keys, value: None
+    engine.journal = jr
+    journaled = engine.run_config(keys)
+    assert pickle.dumps(journaled[2:]) == pickle.dumps(plain[2:])
+    assert jr.n_appends == 1 + 10
+    jr.close()
+    jr = rjournal.SweepJournal.open(path, ("probe",), warn_out=None)
+    assert len(jr.partial_folds(keys)) == 10
+    engine = SweepEngine(*arrays)
+    engine.journal = jr
+    fits = []
+    real = trees.fit_forest_hist
+    monkeypatch.setattr(trees, "fit_forest_hist",
+                        lambda *a, **k: fits.append(1) or real(*a, **k))
+    resumed = engine.run_config(keys)
+    jr.close()
+    assert fits == []          # every fold came from the journal
+    assert pickle.dumps(resumed[2:]) == pickle.dumps(plain[2:])
