@@ -14,6 +14,13 @@ against the CPU's and profiled alone, for its launches a level. The
 ensemble configs and the first Decision Tree config then run once more
 under the profiler, for the kernels' shares of device time.
 
+``scores planner`` (the plan executor) runs the same four configs as
+three plans, each member's 10 folds grown as one tree batch; its scores
+must equal the scores path's, and each member's wall, K1 launches, host
+reads, peak memory and (profiled once more) idle share are printed. K1 is
+held bitwise and timed on every fold-batched BFS step of the RF member
+(1,000 trees reading 10 groups of bins).
+
 Three drills hold the crash tolerance of ``scores`` on the card, on an RF,
 an ET and a Decision Tree config at full width, each against the scores
 path's results: a kill drill (a SIGKILL right after the journal fsyncs
@@ -31,6 +38,7 @@ their launches on the main path, times and bounds. Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -105,16 +113,16 @@ def _device_ms(fn, reps, warm=2):
 
 def hist_bound_ms(rel, w, bin_t, n_nodes, n_bins):
     """K1's least time on the card for these inputs: each input read once
-    ([T, N] int32 rel, f32 w and wy, [F, N] uint8 bins) and both
-    [T, F, W, B] f32 outputs written once, over the memory rate, against
-    the adds (two for each in-window sample of weight > 0 and feature, two
-    an output element) over the f32 rate. Returns (ms, "bytes" or
-    "operations")."""
+    ([T, N] int32 rel, f32 w and wy, [F, N] or [G, F, N] uint8 bins) and
+    both [T, F, W, B] f32 outputs written once, over the memory rate,
+    against the adds (two for each in-window sample of weight > 0 and
+    feature, two an output element) over the f32 rate. Returns (ms,
+    "bytes" or "operations")."""
     n_tree, n = rel.shape
-    n_feat = bin_t.shape[0]
+    n_feat = bin_t.shape[-2]
     in_window = int(((rel >= 0) & (rel < n_nodes) & (w > 0)).sum())
     out_elems = n_tree * n_feat * n_nodes * n_bins
-    nbytes = n_tree * n * 12 + n_feat * n + 2 * out_elems * 4
+    nbytes = n_tree * n * 12 + bin_t.numel() + 2 * out_elems * 4
     ops = 2 * n_feat * in_window + 2 * out_elems
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -228,11 +236,13 @@ def first_fold(engine, config, fit_name, run_fit=True):
     return seen[0]
 
 
-def record_steps(engine, config):
+def record_steps(engine, config, fold_batched=False):
     """K1's inputs at every BFS step of the first fold's fit of ``config``
-    (a ``SweepEngine`` run cut after that fit), as clones on the engine's
-    device: [(rel, w, wy, bin_t, n_nodes, n_bins), ...]. Wraps the
-    grower's ``cum_hists`` for this call only."""
+    (a ``SweepEngine`` run cut after that fit), or with ``fold_batched``
+    of the fold-batched fit of all its folds (the fused config's and the
+    plan executor's), as clones on the engine's device: [(rel, w, wy,
+    bin_t, n_nodes, n_bins), ...]. Wraps the grower's ``cum_hists`` for
+    this call only."""
     from flake16_framework_tpu_torch.ops import trees
 
     steps = []
@@ -245,7 +255,10 @@ def record_steps(engine, config):
 
     trees.cum_hists = recorder
     try:
-        first_fold(engine, config, "fit_forest_hist")
+        if fold_batched:
+            engine._fit_count_folds(config)
+        else:
+            first_fold(engine, config, "fit_forest_hist")
     finally:
         trees.cum_hists = real_cum_hists
     return steps
@@ -645,6 +658,168 @@ def run_lopo_path(tmp, tj):
     _require(set(on_disk) == set(LOPO_CONFIGS), f"keys {sorted(on_disk)}")
     _check_schema(on_disk, LOPO_CONFIGS, N_PROJECTS)
     return launches, _config_rows(scores, LOPO_CONFIGS, walls, k1), wall
+
+
+@contextlib.contextmanager
+def _count_host_reads():
+    """Counts, while open, the host's reads of CUDA tensors' values:
+    ``bool()`` (the growers' loop conditions), ``.item()`` and ``.cpu()``
+    (the counts). Yields a one-element list holding the count."""
+    count = [0]
+    own = {name: torch.Tensor.__dict__.get(name)
+           for name in ("__bool__", "item", "cpu")}
+
+    def counted(real):
+        def read(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return real(self, *args, **kwargs)
+        return read
+
+    for name in own:
+        setattr(torch.Tensor, name, counted(getattr(torch.Tensor, name)))
+    try:
+        yield count
+    finally:
+        for name, real in own.items():
+            if real is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, real)
+
+
+def run_planner_path(tmp, tj, ref):
+    """``write_scores(planner=True)`` at full width over the scores path's
+    configs: three plans (RF, ET, and the two Decision Trees), each
+    member's 10 folds grown as one tree batch (1,000 trees on K1, or 10
+    single trees on the exact grower). The pickle's scores must equal the
+    scores path's (``ref``, v[2:] bitwise), each ensemble member must
+    launch K1 and no Decision Tree member may, and the timing meta must
+    mark every member combined and the two-member plan amortized. Per
+    member (one ``SweepEngine._fit_count_folds`` call, synchronised): its
+    wall, K1 launches, host reads (``_count_host_reads``) and peak
+    allocated memory."""
+    from flake16_framework_tpu_torch.kernels.hist import cum_hists
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    configs = MAIN_CONFIGS + DT_CONFIGS
+    members = []
+    real = SweepEngine._fit_count_folds
+
+    def measured(self, keys):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1 = cum_hists.launches
+        with _count_host_reads() as reads:
+            t0 = time.perf_counter()
+            out = real(self, keys)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        members.append({"config": "/".join(keys), "folds": self.n_folds,
+                        "wall_s": wall,
+                        "hist_cumsum_launches": cum_hists.launches - k1,
+                        "host_reads": reads[0],
+                        "peak_allocated_gb":
+                            torch.cuda.max_memory_allocated() / 1e9})
+        return out
+
+    out_file = os.path.join(tmp, "scores-planner.pkl")
+    SweepEngine._fit_count_folds = measured
+    try:
+        t0 = time.time()
+        _, launches, _, _, journal = _run_scores(tj, out_file, configs,
+                                                 planner=True)
+        wall = time.time() - t0
+    finally:
+        SweepEngine._fit_count_folds = real
+    with open(out_file, "rb") as fd:
+        on_disk = pickle.load(fd)
+    _require(set(on_disk) == set(configs), f"keys {sorted(on_disk)}")
+    for k in configs:
+        _require(pickle.dumps(on_disk[k][2:]) == pickle.dumps(ref[k][2:]),
+                 f"planner path: {k} differs from the scores path")
+    _require([m["config"] for m in members] == ["/".join(k) for k in (
+        MAIN_CONFIGS[0], DT_CONFIGS[0], DT_CONFIGS[1], MAIN_CONFIGS[1])],
+        f"planner path ran {[m['config'] for m in members]}")
+    for m in members:
+        tree = m["config"].endswith("Decision Tree")
+        _require(tree == (m["hist_cumsum_launches"] == 0),
+                 f"{m['config']}: {m['hist_cumsum_launches']} K1 launches")
+    with open(out_file + ".meta.json") as fd:
+        meta = json.load(fd)
+    _require(meta["fused_combined"] == sorted(list(k) for k in configs)
+             and meta["batch_amortized"] == sorted(list(k)
+                                                   for k in DT_CONFIGS),
+             f"timing meta {meta}")
+    return launches, members, journal, wall
+
+
+def check_batched_steps(tests_file):
+    """K1 on every fold-batched BFS step of the RF member (its 10 folds'
+    1,000 trees as one batch, each fold's trees reading that fold's bins):
+    each step bitwise equal to the plain version's and to a second run's,
+    the steps timed back to back (CUDA events) and queued behind a sleep
+    against the sum of their byte bounds (the G x F x N bins included)."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    config = MAIN_CONFIGS[0]
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    steps = record_steps(engine, config, fold_batched=True)
+    bounds, shares, rows = [], [], []
+    for s in steps:
+        got, again = cum_hists(*s), cum_hists(*s)
+        want = cum_hists_plain(*s)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"hist_cumsum differs from plain on a "
+                                 f"fold-batched step of {config}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"hist_cumsum: two runs differ on a "
+                                 f"fold-batched step of {config}")
+        del got, again, want
+        bounds.append(hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0])
+        share, occ = step_stats(s[0], s[1], s[4])
+        shares.append(share)
+        rows.append(float(occ.float().mean()))
+    sum_ms = _cuda_ms(lambda: launch_steps(steps), reps=3, warm=1)
+    device_sum_ms, host_ms, queued = _device_ms(lambda: launch_steps(steps),
+                                                reps=3, warm=1)
+    return {"config": "/".join(config), "steps": len(steps),
+            "trees": int(steps[0][0].shape[0]),
+            "groups": int(steps[0][3].shape[0]),
+            "sum_ms": sum_ms, "mean_ms": sum_ms / len(steps),
+            "device_sum_ms": device_sum_ms, "queued": queued,
+            "host_ms_per_call": host_ms / len(steps),
+            "bound_sum_ms": sum(bounds), "bound_share": sum(bounds) / sum_ms,
+            "device_bound_share": sum(bounds) / device_sum_ms,
+            "in_window_share_mean": float(np.mean(shares)),
+            "rows_mean": float(np.mean(rows))}
+
+
+def profile_member(tests_file, config, wall_s):
+    """One plan member's fold-batched fit (``_fit_count_folds`` over its
+    10 folds) once more under the profiler, outside the counted path:
+    launches, device busy time, K1's share, and the idle share of
+    ``wall_s``, its unprofiled wall on the planner path."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    kernels = _profiled(lambda: engine._fit_count_folds(config))
+    busy_ms = sum(k[0] for k in kernels)
+    hist_ms = sum(k[0] for k in kernels if "hist_cumsum" in k[1])
+    return {"config": "/".join(config), "wall_s_unprofiled": wall_s,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "device_busy_ms": busy_ms, "hist_cumsum_ms": hist_ms,
+            "hist_cumsum_launches": sum(k[2] for k in kernels
+                                        if "hist_cumsum" in k[1]),
+            "hist_share_of_device": hist_ms / busy_ms if busy_ms else None,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / wall_s,
+            "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                            for ms, n, c in kernels[:15]]}
 
 
 def run_shap_path(tmp, tj):
@@ -1100,6 +1275,33 @@ def main():
               f"{journal['append_wall_s']:.6f} s of "
               f"{journal['sweep_wall_s']:.3f} s "
               f"({journal['append_share']:.3%})", flush=True)
+        planner_launches, members, pjournal, pwall = run_planner_path(
+            tmp, tj, ref)
+        lap("planner_path")
+        for m in members:
+            print(f"planner member {m['config']} ({smi}): wall "
+                  f"{m['wall_s']:.3f} s, hist_cumsum launches "
+                  f"{m['hist_cumsum_launches']}, host reads "
+                  f"{m['host_reads']}, peak allocated "
+                  f"{m['peak_allocated_gb']:.2f} GB", flush=True)
+        print(f"planner path launches: {planner_launches}, wall "
+              f"{pwall:.2f} s; journal {pjournal['n_appends']} appends in "
+              f"{pjournal['append_wall_s']:.6f} s of "
+              f"{pjournal['sweep_wall_s']:.3f} s; scores == scores path",
+              flush=True)
+        batched = check_batched_steps(tj)
+        lap("hist_cumsum_batched_steps")
+        print(f"hist_cumsum fold-batched steps {batched['config']} "
+              f"({batched['trees']} trees, {batched['groups']} groups): "
+              f"{batched['steps']} steps, {batched['sum_ms']:.4f} ms back "
+              f"to back ({batched['mean_ms']:.4f} ms a step; device time "
+              f"{batched['device_sum_ms']:.4f} ms, queued "
+              f"{batched['queued']}), bound {batched['bound_sum_ms']:.4f} "
+              f"ms ({batched['bound_share']:.1%}; of device time "
+              f"{batched['device_bound_share']:.1%}), in-window share "
+              f"{batched['in_window_share_mean']:.3f}, occupied rows "
+              f"{batched['rows_mean']:.1f}; bitwise == plain and "
+              f"repeatable on every step", flush=True)
         kill = run_kill_drill(tmp, ref)
         lap("kill_drill")
         kj = kill["journal"]
@@ -1145,6 +1347,8 @@ def main():
             c = by_name["/".join(k)]
             prof.append(profile_config(tj, k, 10 * (
                 c["t_train_per_fold_s"] + c["t_test_per_fold_s"])))
+        member_prof = [profile_member(tj, tuple(m["config"].split("/")),
+                                      m["wall_s"]) for m in members]
     lap("profiles")
     print(f"phases (s): {json.dumps(phases)}", flush=True)
     for p in prof:
@@ -1156,8 +1360,20 @@ def main():
               f"{p['hist_cumsum_launches']} launches ({share:.1%} of device "
               f"time), exact-grower levels {p['levels']}", flush=True)
         print(f"profile: {json.dumps(p)}", flush=True)
+    for p in member_prof:
+        share = p["hist_share_of_device"]
+        print(f"planner member profile {p['config']} ({smi}): "
+              f"{p['kernel_launches']} launches, busy "
+              f"{p['device_busy_ms']:.1f} ms, idle "
+              f"{p['device_idle_share']:.1%} of "
+              f"{p['wall_s_unprofiled']:.3f} s, hist_cumsum "
+              f"{p['hist_cumsum_ms']:.2f} ms over "
+              f"{p['hist_cumsum_launches']} launches"
+              + (f" ({share:.1%} of device time)" if share else ""),
+              flush=True)
 
-    paths = {"scores": score_launches, "lopo": lopo_launches,
+    paths = {"scores": score_launches, "planner": planner_launches,
+             "lopo": lopo_launches,
              "shap": shap_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"]}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
@@ -1171,6 +1387,9 @@ def main():
               "hist_real_steps": real,
               "small_reference": small, "exact_fold": exact,
               "scores_path": configs, "scores_path_journal": journal,
+              "planner_path": members, "planner_path_wall_s": pwall,
+              "planner_path_journal": pjournal,
+              "hist_batched_steps": batched, "planner_profile": member_prof,
               "kill_drill": kill, "sticky_fault_drill": sticky,
               "oom_drill": oom, "lopo_path": lopo_cfgs,
               "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,

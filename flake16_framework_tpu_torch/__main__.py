@@ -5,8 +5,11 @@ flake16_framework_tpu_torch scores`` runs the 10-fold CV sweep over all
 leave-one-project-out sweep into ``scores-lopo.pkl``, ``... resume
 [lopo]`` continues a killed sweep from its journal or partial pickle, and
 ``... shap`` writes the Tree SHAP values of the two paper configs into
-``shap.pkl``. ``scores`` and ``resume`` exit with 23 when configs were
-quarantined (``scores.pkl.quarantine.json`` lists them)."""
+``shap.pkl``. ``scores`` and ``resume`` also take ``planner`` (the configs
+run as family plans), ``fused`` (each config's folds grown as one tree
+batch) and ``dispatch=N`` (at most N trees a fold grown as one batch), and
+exit with 23 when configs were quarantined
+(``scores.pkl.quarantine.json`` lists them)."""
 
 import os
 import sys
@@ -14,23 +17,26 @@ import sys
 # Options of the JAX package's ``scores`` that the port does not have yet,
 # and what brings them (ROADMAP.md, queue A).
 _LATER = {
-    "fused": "the plan executor (ROADMAP.md §A 2)",
-    "planner": "the plan executor (ROADMAP.md §A 2)",
-    "dispatch=": "the plan executor (ROADMAP.md §A 2)",
     "profile=": "the port's telemetry (ROADMAP.md §A 6)",
 }
 
 
 def _scores_kwargs(command, args):
+    kw = {"cv": "stratified"}
     for a in args:
         if a == "lopo":
-            continue
-        head, eq, _ = a.partition("=")
-        later = _LATER.get(head + eq)
-        raise ValueError(f"Unrecognized {command} option {a!r}" + (
-            f": not in the port yet; it comes with {later}" if later
-            else ""))
-    return {"cv": "lopo" if "lopo" in args else "stratified"}
+            kw["cv"] = "lopo"
+        elif a in ("planner", "fused"):
+            kw[a] = True
+        elif a.startswith("dispatch="):
+            kw["dispatch_trees"] = int(a.split("=", 1)[1]) or None
+        else:
+            head, eq, _ = a.partition("=")
+            later = _LATER.get(head + eq)
+            raise ValueError(f"Unrecognized {command} option {a!r}" + (
+                f": not in the port yet; it comes with {later}" if later
+                else ""))
+    return kw
 
 
 def main(argv=None):

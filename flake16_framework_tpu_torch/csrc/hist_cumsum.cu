@@ -6,8 +6,11 @@
 // cumsummed over bins. Here the one-hots never exist: for tree t and
 // feature f,
 //
-//   cw[t, f, w, b]  = sum_{b' <= b} sum_n [rel[t,n] == w] * w[t,n] * [bin[f,n] == b']
+//   cw[t, f, w, b]  = sum_{b' <= b} sum_n [rel[t,n] == w] * w[t,n] * [bin[s,f,n] == b']
 //   cwy[t, f, w, b] = the same with wy[t,n]
+//
+// where s = t / trees_per_group is tree t's bin set: the grower batches the
+// trees of several folds, and each fold's trees read that fold's bins.
 //
 // What bounds it: bytes. A step must write 2 x [T, F, W, B] f32 (104.9 MB
 // at T = 100, F = 16, W = 128, B = 64) and read 9.7 MB: 34.2 us at
@@ -333,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1) hist_cumsum_kernel(
     const int32_t* __restrict__ rel, const float* __restrict__ w,
     const float* __restrict__ wy, const uint8_t* __restrict__ bin_t,
     float* __restrict__ cw, float* __restrict__ cwy, int n, int n_feat,
-    int n_nodes, int n_bins) {
+    int n_nodes, int n_bins, int trees_per_group) {
   extern __shared__ float4 smem4[];
   unsigned* cells = reinterpret_cast<unsigned*>(smem4);
   uint8_t* mark =
@@ -345,7 +348,8 @@ __global__ void __launch_bounds__(kThreads, 1) hist_cumsum_kernel(
   const int t = blockIdx.x / n_groups;
   const int f0 = (blockIdx.x - t * n_groups) * kGroup;
   const size_t row0 = static_cast<size_t>(t) * n;
-  const Tile tl{cells, mark, bin_t + static_cast<size_t>(f0) * n, n,
+  const size_t bin_set = static_cast<size_t>(t / trees_per_group);
+  const Tile tl{cells, mark, bin_t + (bin_set * n_feat + f0) * n, n,
                 min(kGroup, n_feat - f0), n_nodes, n_bins};
   const int32_t* rel_t = rel + row0;
   const float* w_t = w + row0;
@@ -386,7 +390,8 @@ __global__ void __launch_bounds__(kThreads, 1) hist_cumsum_kernel(
 constexpr int kMaxDevices = 64;
 
 using Kernel = void (*)(const int32_t*, const float*, const float*,
-                        const uint8_t*, float*, float*, int, int, int, int);
+                        const uint8_t*, float*, float*, int, int, int, int,
+                        int);
 
 int bins_per_lane(int n_bins) {
   return n_bins <= 32 ? 1 : n_bins <= 64 ? 2 : n_bins <= 128 ? 4 : 8;
@@ -441,15 +446,17 @@ extern "C" int hist_cumsum_occupancy(int n_nodes, int n_bins, int device,
 }
 
 // Launches on ``stream`` of CUDA device ``device``, one block of kThreads
-// a (tree, kGroup features) tile. Returns cudaGetLastError() (0 on
-// success). This library has its own CUDA runtime, whose current device
-// is not the caller's, so the device is made current here. The caller
-// allocates the outputs, checks shapes, types, shared memory and 16-byte
-// alignment of rel, w and wy, and synchronises.
+// a (tree, kGroup features) tile; bin_t holds n_tree / trees_per_group
+// bin sets of [n_feat, n], one for each run of trees_per_group trees.
+// Returns cudaGetLastError() (0 on success). This library has its own CUDA
+// runtime, whose current device is not the caller's, so the device is made
+// current here. The caller allocates the outputs, checks shapes, types,
+// shared memory and 16-byte alignment of rel, w and wy, and synchronises.
 extern "C" int hist_cumsum_launch(const void* rel, const void* w,
                                   const void* wy, const void* bin_t, void* cw,
                                   void* cwy, int n_tree, int n, int n_feat,
-                                  int n_nodes, int n_bins, int device,
+                                  int n_nodes, int n_bins,
+                                  int trees_per_group, int device,
                                   void* stream) {
   const cudaError_t err = prepare(device, n_nodes, n_bins);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -461,6 +468,6 @@ extern "C" int hist_cumsum_launch(const void* rel, const void* w,
       static_cast<const int32_t*>(rel), static_cast<const float*>(w),
       static_cast<const float*>(wy), static_cast<const uint8_t*>(bin_t),
       static_cast<float*>(cw), static_cast<float*>(cwy), n, n_feat, n_nodes,
-      n_bins);
+      n_bins, trees_per_group);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,24 @@ def confusion_by_project(labels, preds, test_mask, project_ids, n_projects):
     return counts.to(torch.int32).reshape(n_projects, 3)
 
 
+def confusion_by_fold(labels, preds, test_mask, project_ids, n_projects):
+    """(FP, FN, TP) per fold and project, int32 [G, P, 3], from per-fold
+    predictions and test masks [G, N]: row g equals
+    ``confusion_by_project`` of fold g. One scatter-add, with no
+    data-dependent shape, so the counts reach the host in one read."""
+    labels = labels.to(torch.int64)
+    n_fold = preds.shape[0]
+    k = 2 * labels[None, :] + preds.to(torch.int64) - 1
+    mask = (test_mask > 0) & (k >= 0)
+    fold = torch.arange(n_fold, device=preds.device)[:, None]
+    seg = (fold * n_projects + project_ids.to(torch.int64)[None, :]) * 3 \
+        + k.clamp(min=0)
+    counts = torch.zeros(n_fold * n_projects * 3, dtype=torch.int64,
+                         device=preds.device).scatter_add_(
+        0, seg.reshape(-1), mask.reshape(-1).to(torch.int64))
+    return counts.to(torch.int32).reshape(n_fold, n_projects, 3)
+
+
 def div_none(a, b):
     return a / b if b else None
 

@@ -19,20 +19,27 @@ key ``fold_in(tree_key, node_id)`` (``rng``, bit-compatible with
 batch changes the forest, and the forest equals the JAX package's bit for
 bit.
 
-The exact grower (``fit_forest``, one tree after another) grows a tree a
+The exact grower (``fit_forest``, its trees as one batch) grows a tree a
 level at a time: a stable sort by node id of each feature's value-sorted
 samples puts every node's samples in one run in value order, and every
 position between two distinct values of a run is a candidate split
 (sklearn's ``splitter="best"``, midpoint thresholds). It has no kernel of
 its own: sorts, scans, gathers and scatters over [F, N]. Its loop reads
-the level's split count once a level. Which grower a config takes is
+one number a level. Which grower a config takes is
 ``hist_tier_default``'s rule alone.
+
+Both growers also take a fold batch (``fit_folds_hist``, ``fit_folds``):
+the trees of G folds, each fold with its own samples and keys, grow as one
+batch, one BFS step or one level serving every fold; ``predict_batch``
+predicts the folds' forests as one batch. Each fold's forest is the one
+its one-fold fit grows, bit for bit.
 
 Weights are small integers, so every histogram and prefix sum is exact in
 f32 in any order. ``argmax`` takes the first maximum (the lowest boundary,
 the lowest feature), as ``jnp.argmax`` does.
 """
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -90,8 +97,8 @@ def quantile_edges(x):
 
 
 def bin_indices(x, edges):
-    """Bin index [N, F] int64: the count of edges strictly below x."""
-    return (x[:, :, None] > edges[None, :, :]).sum(-1)
+    """Bin index [..., N, F] int64: the count of edges strictly below x."""
+    return (x[..., None] > edges).sum(-1)
 
 
 def hist_subtract(total, side):
@@ -184,20 +191,34 @@ def _node_uniforms(kg, n_ids, n_feat, random_splits):
 
 def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
                 max_depth, max_nodes, node_batch):
-    """Grow a batch of T trees on shared binned features; per-tree weights
-    w [T, N] and grower keys kg [T, 2]. Returns the Forest field tensors
-    (feature, threshold, left, right, value, n_nodes), node axis cut to
-    ``max_nodes``."""
+    """Grow a batch of T trees on G groups of samples: x [G, N, F], their
+    bins bin_t [G, F, N] and labels y01 [G, N]; the bin edges [F, B-1]
+    are shared. Per-tree weights w [T, N] and grower keys kg [T, 2]; tree
+    t belongs to group t // (T / G). Returns the Forest field tensors
+    (feature, threshold, left, right, value, n_nodes), tree axis T, node
+    axis cut to ``max_nodes``."""
     dev = x.device
+    n_group = x.shape[0]
     n_tree, n = w.shape
+    tpg = n_tree // n_group                                  # trees a group
     n_feat, n_bins = edges.shape[0], edges.shape[1] + 1
     bw = min(node_batch, max_nodes)
     m_pad = max_nodes + 2 * bw
     iota_w = torch.arange(bw, device=dev)
     iota_t = torch.arange(n_tree, device=dev)
     feat_ix = torch.arange(n_feat, device=dev)[None, :, None]
-    xt = x.T.contiguous()                                    # [F, N]
+    xt = x.transpose(1, 2).contiguous()                      # [G, F, N]
     sample_ix = torch.arange(n, device=dev)[None, :]
+    group_ix = iota_t[:n_group, None, None]                  # [G, 1, 1]
+
+    def at_group(t, f):
+        """t [G, F, N] read at each tree's group, feature f [T, N] and
+        sample: [T, N]. One group reads as a [F, N] tensor: on CUDA the
+        three-index read costs one more launch (a copy of the expanded
+        indices), which a one-fold step does not pay."""
+        if n_group == 1:
+            return t[0][f, sample_ix]
+        return t[group_ix, f.view(n_group, tpg, n), sample_ix].view(n_tree, n)
 
     feature = torch.full((n_tree, m_pad), -1, dtype=torch.int32, device=dev)
     threshold = torch.zeros((n_tree, m_pad), dtype=x.dtype, device=dev)
@@ -206,7 +227,7 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
     value = torch.zeros((n_tree, m_pad, 2), dtype=x.dtype, device=dev)
     depth = torch.zeros((n_tree, m_pad), dtype=torch.int64, device=dev)
 
-    wy = w * y01[None, :]
+    wy = (w.view(n_group, tpg, n) * y01[:, None, :]).view(n_tree, n)
     sample_node = torch.where(w > 0, 0, -1).to(torch.int64)  # [T, N]
     tot_w0, tot_wy0 = w.sum(1), wy.sum(1)
     value[:, 0, 0] = tot_w0 - tot_wy0
@@ -303,13 +324,13 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
         can_mine = inb & can_split.gather(1, rs)
         rank_mine = rank.gather(1, rs)
         bf_mine = best_f.gather(1, rs)                       # [T, N]
-        go_left = bin_t[bf_mine, sample_ix] < bound_n.gather(1, rs)
+        go_left = at_group(bin_t, bf_mine) < bound_n.gather(1, rs)
 
         if not random_splits:
             # Sharpen each winner to the exact sklearn midpoint between
             # the closest member values either side of the chosen edge;
             # routing is unchanged, only the stored threshold moves.
-            xv = xt[bf_mine, sample_ix]
+            xv = at_group(xt, bf_mine)
             inf = torch.full_like(xv, torch.inf)
             m_l = torch.full((n_tree, bw), -torch.inf, dtype=x.dtype,
                              device=dev).scatter_reduce_(
@@ -352,64 +373,131 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
 
 def bootstrap_weights(w, keys):
     """Per-tree multinomial bootstrap over rows with positive weight:
-    round(sum(w)) inverse-CDF draws, one uniform per row. w [N], keys
-    [T, 2] -> counts [T, N]."""
-    n = w.shape[0]
-    total = w.sum()
-    cdf = torch.cumsum(w, 0) / torch.clamp(total, min=1.0)
-    u = rng.uniform(keys, (n,))                              # [T, N]
+    round(sum(w)) inverse-CDF draws, one uniform per row. w [..., N] (a
+    leading axis of folds, each with its own rows), keys [..., T, 2] ->
+    counts [..., T, N]."""
+    n = w.shape[-1]
+    n_tree = keys.shape[-2]
+    total = w.sum(-1, keepdim=True)
+    cdf = torch.cumsum(w, -1) / torch.clamp(total, min=1.0)
+    u = rng.uniform(keys, (n,))                              # [..., T, N]
     # right=True: a draw of exactly 0.0 must not pick a leading zero row.
-    idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, n - 1)
+    idx = torch.clamp(torch.searchsorted(
+        cdf, u.reshape(*u.shape[:-2], n_tree * n), right=True), 0, n - 1)
     keep = (torch.arange(n, device=w.device)
             < torch.round(total).to(torch.int64)).to(w.dtype)
-    return torch.zeros((keys.shape[0], n), dtype=w.dtype,
-                       device=w.device).scatter_add_(
-        1, idx, keep.expand(keys.shape[0], -1).contiguous())
+    return torch.zeros(u.shape, dtype=w.dtype, device=w.device).scatter_add_(
+        -1, idx.view(u.shape),
+        keep[..., None, :].expand(u.shape).contiguous())
 
 
-def fit_forest_hist(x, y, w, key, *, n_trees, bootstrap, random_splits,
-                    sqrt_features, max_depth=48, max_nodes=None, edges=None):
-    """Fit a histogram-grown ensemble. x [N, F] f32; y [N] bool/int; w [N]
-    >= 0 sample weights (0 = row excluded); ``key`` a threefry key [2].
-    Returns a ``Forest`` with a [n_trees, ...] leading axis.
+def _batches(n_folds, n_trees, tree_chunk, fold_chunk):
+    """The (fold slice, tree slice) of each tree batch: every tree of every
+    fold when no bound is given, else at most ``fold_chunk`` folds by
+    ``tree_chunk`` trees a batch."""
+    tc = tree_chunk or n_trees
+    fc = fold_chunk or n_folds
+    return [(slice(g, g + fc), slice(t, t + tc))
+            for g in range(0, n_folds, fc) for t in range(0, n_trees, tc)]
+
+
+def _joined(parts, n_folds, n_trees, tree_chunk, fold_chunk):
+    """The Forest field tensors of tree batches (``_batches`` order),
+    each [g, t, ...], joined into [n_folds, n_trees, ...]."""
+    if len(parts) == 1:
+        return parts[0]
+    n_t = len(range(0, n_trees, tree_chunk or n_trees))
+    rows = [[torch.cat(f, 1) for f in zip(*parts[i:i + n_t])]
+            for i in range(0, len(parts), n_t)]
+    return [torch.cat(f, 0) for f in zip(*rows)]
+
+
+def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
+                   random_splits, sqrt_features, max_depth=48, max_nodes=None,
+                   tree_chunk=None, fold_chunk=None):
+    """Fit one histogram-grown ensemble a fold, the folds' trees grown as
+    one tree batch. x [G, N, F] f32, y [G, N] bool/int, w [G, N] >= 0
+    sample weights (0 = row excluded) and ``keys`` [G, 2] threefry keys,
+    one a fold; ``edges`` [F, HIST_BINS-1] are shared by the folds (once a
+    config). Returns a ``Forest`` with [G, n_trees, ...] leading axes.
 
     RandomForest = bootstrap, not random_splits; ExtraTrees = random_splits,
-    no bootstrap; both with sqrt_features. ``edges`` [F, HIST_BINS-1] may
-    be given (once per config). The BFS window width is ``NODE_BATCH``
-    for the device; it does not change the forest. All trees grow as one
-    batch: the sweep
-    fits one fold (100 trees) at a time, so the [T, F, W, B] x 2 step
-    workspace stays near 105 MB at W = 128."""
-    n, n_feat = x.shape
+    no bootstrap; both with sqrt_features. Tree t of fold g draws from
+    ``split(split(keys[g], n_trees)[t])``, so each fold's forest equals
+    ``fit_forest_hist`` on that fold bit for bit, and neither the BFS
+    window width (``NODE_BATCH``) nor the batches change it: at most
+    ``fold_chunk`` folds by ``tree_chunk`` trees grow as one batch (None:
+    all). A batch's step workspace is about 5 MiB a tree at N = 8000,
+    W = 128 (``parallel/sweep.py``, ``TREES_IN_FLIGHT``)."""
+    n_fold, n, n_feat = x.shape
     if max_nodes is None:
         max_nodes = 2 * n
     max_features = max(1, int(n_feat ** 0.5)) if sqrt_features else None
     x = x.to(torch.float32)
     y01 = y.to(x.dtype)
     w = w.to(x.dtype)
+    bin_t = bin_indices(x, edges).transpose(1, 2).to(
+        torch.uint8).contiguous()                            # [G, F, N]
+    kk = rng.split(rng.split(keys, n_trees))                 # [G, T, 2, 2]
+    kb, kg = kk[..., 0, :], kk[..., 1, :]
+    wt = bootstrap_weights(w, kb) if bootstrap \
+        else w[:, None, :].expand(n_fold, n_trees, n)
+    parts = []
+    for gs, ts in _batches(n_fold, n_trees, tree_chunk, fold_chunk):
+        wb = wt[gs, ts]
+        # K1 takes w contiguous, from a 16-byte boundary
+        w_flat = wb.reshape(-1, n).contiguous()
+        if w_flat.data_ptr() % 16:
+            w_flat = w_flat.clone()
+        fields = _grow_trees(
+            x[gs], bin_t[gs], edges, y01[gs], w_flat,
+            kg[gs, ts].reshape(-1, 2), random_splits=random_splits,
+            max_features=max_features, max_depth=max_depth,
+            max_nodes=max_nodes, node_batch=NODE_BATCH[x.device.type])
+        parts.append([f.view(*wb.shape[:2], *f.shape[1:]) for f in fields])
+    return Forest(*_joined(parts, n_fold, n_trees, tree_chunk, fold_chunk),
+                  max_depth)
+
+
+def fit_forest_hist(x, y, w, key, *, n_trees, bootstrap, random_splits,
+                    sqrt_features, max_depth=48, max_nodes=None, edges=None,
+                    tree_chunk=None):
+    """Fit a histogram-grown ensemble on one fold: ``fit_folds_hist`` with
+    one fold. x [N, F] f32; y [N] bool/int; w [N] >= 0 sample weights;
+    ``key`` a threefry key [2]; ``edges`` (once per config) default to
+    ``quantile_edges(x)``. Returns a ``Forest`` with a [n_trees, ...]
+    leading axis."""
+    x = x.to(torch.float32)
     if edges is None:
         edges = quantile_edges(x)
-    bin_t = bin_indices(x, edges).T.to(torch.uint8).contiguous()  # [F, N]
-
-    kk = rng.split(rng.split(key, n_trees))
-    kb, kg = kk[:, 0], kk[:, 1]
-    wt = bootstrap_weights(w, kb) if bootstrap \
-        else w.expand(n_trees, -1).contiguous()
-    fields = _grow_trees(x, bin_t, edges, y01, wt, kg,
-                         random_splits=random_splits,
-                         max_features=max_features, max_depth=max_depth,
-                         max_nodes=max_nodes,
-                         node_batch=NODE_BATCH[x.device.type])
-    return Forest(*fields, max_depth)
+    forest = fit_folds_hist(
+        x[None], y[None], w[None], key[None], edges=edges, n_trees=n_trees,
+        bootstrap=bootstrap, random_splits=random_splits,
+        sqrt_features=sqrt_features, max_depth=max_depth,
+        max_nodes=max_nodes, tree_chunk=tree_chunk)
+    return Forest(*(f[0] for f in forest[:-1]), max_depth)
 
 
-def hist_tier_default(n_trees):
+def ensemble_grower(grower=None):
+    """The ensembles' grower: ``grower``, else the ``F16_ENSEMBLE_GROWER``
+    environment variable, else "hist" (read at call time, as the JAX
+    package reads it); "exact" grows ensembles on the exact grower.
+    Raises ValueError for any other value."""
+    g = grower or os.environ.get("F16_ENSEMBLE_GROWER", "hist")
+    if g not in ("hist", "exact"):
+        raise ValueError(
+            f"grower/F16_ENSEMBLE_GROWER must be hist|exact, got {g!r}")
+    return g
+
+
+def hist_tier_default(n_trees, grower=None):
     """Whether a config of ``n_trees`` trees grows on the histogram grower:
-    an ensemble does; a single tree grows on the exact grower, since with
-    no averaging over trees the bin-granular choice of candidates moved the
-    single tree's F1 (the JAX package's parity record). The only switch
-    between the two growers."""
-    return n_trees > 1
+    an ensemble does unless its grower (``ensemble_grower``) is "exact"; a
+    single tree grows on the exact grower, since with no averaging over
+    trees the bin-granular choice of candidates moved the single tree's F1
+    (the JAX package's parity record). The only switch between the two
+    growers."""
+    return n_trees > 1 and ensemble_grower(grower) == "hist"
 
 
 def _run_boundaries(s_rel):
@@ -435,91 +523,137 @@ def _prefix_stats(vals, is_start, is_end):
 
 
 def _run_best(s_rel, score):
-    """For each node id j of the sorted ids ``s_rel`` [F, N] (values in
-    [0, N], N = parked): the best ``score`` of j's run and the lowest
-    position that reaches it, [F, N + 1] each; a run of all -inf gives its
-    start position, an absent id -inf and N. At a run's start this is the
-    JAX package's segmented suffix scan (``_segmented_suffix_best``),
-    here as two per-run scatter reductions (max, then min position)."""
-    n_feat, n = score.shape
-    best = torch.full((n_feat, n + 1), -torch.inf, dtype=score.dtype,
+    """For each node id j of the sorted ids ``s_rel`` [..., F, N] (values
+    in [0, N], N = parked): the best ``score`` of j's run and the lowest
+    position that reaches it, [..., F, N + 1] each; a run of all -inf
+    gives its start position, an absent id -inf and N. At a run's start
+    this is the JAX package's segmented suffix scan
+    (``_segmented_suffix_best``), here as two per-run scatter reductions
+    (max, then min position)."""
+    n = score.shape[-1]
+    shape = (*score.shape[:-1], n + 1)
+    best = torch.full(shape, -torch.inf, dtype=score.dtype,
                       device=score.device).scatter_reduce_(
-        1, s_rel, score, "amax")
-    pos = torch.arange(n, device=score.device).expand(n_feat, n)
-    hit = score == best.gather(1, s_rel)
-    best_p = torch.full((n_feat, n + 1), n, dtype=torch.int64,
+        -1, s_rel, score, "amax")
+    pos = torch.arange(n, device=score.device).expand(score.shape)
+    hit = score == best.gather(-1, s_rel)
+    best_p = torch.full(shape, n, dtype=torch.int64,
                         device=score.device).scatter_reduce_(
-        1, s_rel, torch.where(hit, pos, n), "amin")
+        -1, s_rel, torch.where(hit, pos, n), "amin")
     return best, best_p
 
 
 def _node_lookup(sample_rel, w_cap):
     """Each node slot's run start and end positions in the sorted order
-    (clamped in bounds) and whether it holds a sample, [w_cap] each. Runs
-    appear in node order in every feature's sorted array (a stable sort of
-    the same ids), so slot j's run starts at the count of samples in lower
-    slots, shared by all features."""
-    n = sample_rel.shape[0]
-    count = torch.zeros(w_cap + 1, dtype=torch.int64,
+    (clamped in bounds) and whether it holds a sample, [..., w_cap] each,
+    from the node ids ``sample_rel`` [..., N]. Runs appear in node order in
+    every feature's sorted array (a stable sort of the same ids), so slot
+    j's run starts at the count of samples in lower slots, shared by all
+    features."""
+    n = sample_rel.shape[-1]
+    count = torch.zeros((*sample_rel.shape[:-1], w_cap + 1),
+                        dtype=torch.int64,
                         device=sample_rel.device).scatter_add_(
-        0, sample_rel, torch.ones_like(sample_rel))[:w_cap]
-    pos = _exclusive_cumsum(count, 0)
+        -1, sample_rel, torch.ones_like(sample_rel))[..., :w_cap]
+    pos = _exclusive_cumsum(count, -1)
     pos_end = torch.clamp(pos + count - 1, 0, n - 1)
     return torch.clamp(pos, max=n - 1), pos_end, count > 0
 
 
-def _fit_one_tree(x, y01, w, key, order0, xsorted, *, random_splits,
-                  max_features, max_depth, max_nodes):
-    """Grow one tree a level at a time on the exact grower. x [N, F], the
-    tree's weights w [N], its grower key [2]; order0/xsorted [F, N] each
-    feature's stable value order and sorted values. Level d draws from
-    fold_in(key, d): the feature order from kf ([N, F] uniforms), the
-    Extra Trees thresholds from kt ([F, N]). A level's node slots are the
-    window [level_base, level_base + N) and its children's [n_nodes,
-    n_nodes + 2N), so the node arrays carry 2N slots of padding. Reads one
-    number a level, its split count. Returns the Forest field tensors of
-    the tree (node axis ``max_nodes``) and its node count."""
+def _fit_trees_exact(x, y01, w, keys, order0, xsorted, *, random_splits,
+                     max_features, max_depth, max_nodes):
+    """Grow the trees of G groups (folds) a level at a time on the exact
+    grower, all as one batch. x [G, N, F], labels y01 [G, N] and each
+    feature's stable value order and sorted values order0/xsorted
+    [G, F, N] are a group's; weights w [G, T, N] and grower keys
+    [G, T, 2] a tree's. Level d draws from fold_in(key, d): the feature
+    order from kf ([N, F] uniforms), the Extra Trees thresholds from kt
+    ([F, N]). A level's node slots are the window [level_base,
+    level_base + N) and its children's [n_nodes, n_nodes + 2N), so the
+    node arrays carry 2N slots of padding.
+
+    A tree's level base and node count are [G, T, 1] tensors, so a
+    finished tree's level is a no-op and the loop reads one number a
+    level: whether any tree is still growing. A batch of one tree keeps
+    them as host ints, read from its split count, and writes its windows
+    as slices, the launches of a one-tree level. Which trees share a
+    batch changes no tree. Returns the Forest field tensors, [G, T, ...]
+    leading axes, node axis ``max_nodes``."""
     dev = x.device
-    n, n_feat = x.shape
+    n_group, n_tree, n = w.shape
+    n_feat = x.shape[2]
     park = n                            # node slots are [0, n); n = parked
     m_pad = max_nodes + 2 * n
-    feature = torch.full((m_pad,), -1, dtype=torch.int32, device=dev)
-    threshold = torch.zeros(m_pad, dtype=x.dtype, device=dev)
+    one = n_group * n_tree == 1
+    lead = (n_group, n_tree)
+    per_feat = (*lead, n_feat, n)
+    feature = torch.full((*lead, m_pad), -1, dtype=torch.int32, device=dev)
+    threshold = torch.zeros((*lead, m_pad), dtype=x.dtype, device=dev)
     left = torch.full_like(feature, -1)
     right = torch.full_like(feature, -1)
-    value = torch.zeros((m_pad, 2), dtype=x.dtype, device=dev)
+    value = torch.zeros((*lead, m_pad, 2), dtype=x.dtype, device=dev)
 
-    wy = w * y01
-    sample_rel = torch.where(w > 0, 0, park)
-    w_f, wy_f = w[order0], wy[order0]
-    tot_wy0 = wy.sum()
-    value[0] = torch.stack([w.sum() - tot_wy0, tot_wy0])
+    def write(arr, base, vals, ok):
+        """arr[..., base + j(, :)] = vals[..., j(, :)] where ok[..., j]."""
+        if not one:
+            _window_update(arr.view(n_group * n_tree, *arr.shape[2:]),
+                           base.view(-1), vals.flatten(0, 1),
+                           ok.flatten(0, 1))
+            return
+        win = arr[0, 0, base:base + vals.shape[2]]
+        ok = ok[0, 0, :, None] if arr.dim() == 4 else ok[0, 0]
+        win.copy_(torch.where(ok, vals[0, 0].to(arr.dtype), win))
+
+    # Each feature's value order is its group's, shared by the group's
+    # trees (weights never reorder values; parked rows are handled by the
+    # level's node ids).
+    order_t = order0[:, None].expand(per_feat)
+    xs_t = xsorted[:, None].expand(per_feat)
+    x_t = x[:, None].expand(*lead, n, n_feat)
+    wy = w * y01[:, None, :]
+    sample_rel = torch.where(w > 0, 0, park)                 # [G, T, N]
+    w_f = w[..., None, :].expand(per_feat).gather(-1, order_t)
+    wy_f = wy[..., None, :].expand(per_feat).gather(-1, order_t)
+    tot_wy0 = wy.sum(-1)
+    value[..., 0, :] = torch.stack([w.sum(-1) - tot_wy0, tot_wy0], -1)
     minus_inf = torch.tensor(-torch.inf, dtype=x.dtype, device=dev)
 
     # Every level's (kf, kt) in one batch, not two hashes a level.
     level_keys = rng.split(rng.fold_in(
-        key, torch.arange(max_depth, device=dev)))           # [D, 2, 2]
-    n_nodes, level_base, d = 1, 0, 0
-    while d < max_depth and n_nodes > level_base:
-        kf, kt = level_keys[d].unbind(0)
+        keys[..., None, :], torch.arange(max_depth, device=dev)))
+    if one:
+        n_nodes, level_base = 1, 0
+    else:
+        n_nodes = torch.ones((*lead, 1), dtype=torch.int64, device=dev)
+        level_base = torch.zeros_like(n_nodes)
+    d = 0
+    # the one host read a level (for one tree, its split count below)
+    while d < max_depth and (n_nodes > level_base if one else
+                             bool((n_nodes > level_base).any())):
+        kf, kt = level_keys[:, :, d].unbind(-2)              # [G, T, 2]
 
         # ---- (node, value) order per feature: a stable sort by node id --
-        s_rel, perm = torch.sort(sample_rel[order0], dim=1, stable=True)
-        s_val = xsorted.gather(1, perm)
-        s_w = w_f.gather(1, perm)
-        s_wy = wy_f.gather(1, perm)
+        s_rel, perm = torch.sort(
+            sample_rel[..., None, :].expand(per_feat).gather(-1, order_t),
+            dim=-1, stable=True)
+        s_val = xs_t.gather(-1, perm)
+        s_w = w_f.gather(-1, perm)
+        s_wy = wy_f.gather(-1, perm)
         is_start, is_end = _run_boundaries(s_rel)
         lw_pre, tot_w = _prefix_stats(s_w, is_start, is_end)
         lwy_pre, tot_wy = _prefix_stats(s_wy, is_start, is_end)
         pos_j, pos_end_j, present = _node_lookup(sample_rel, n)
         active = s_rel < park
-        v_next = torch.cat([s_val[:, 1:], s_val[:, -1:]], 1)
+        v_next = torch.cat([s_val[..., 1:], s_val[..., -1:]], -1)
 
-        tot_w_j = tot_w[:, pos_j]                            # [F, N]
-        tot_wy_j = tot_wy[:, pos_j]
-        v_lo_j = s_val[:, pos_j]                             # node min
-        v_hi_j = s_val[:, pos_end_j]                         # node max
-        nc_j = present[None, :] & (v_hi_j - v_lo_j > FEATURE_EPS)
+        def at_node(t, pos):            # [G, T, F, N] at each node's run
+            return t.gather(-1, pos[..., None, :].expand(per_feat))
+
+        tot_w_j = at_node(tot_w, pos_j)
+        tot_wy_j = at_node(tot_wy, pos_j)
+        v_lo_j = at_node(s_val, pos_j)                       # node min
+        v_hi_j = at_node(s_val, pos_end_j)                   # node max
+        nc_j = present[..., None, :] & (v_hi_j - v_lo_j > FEATURE_EPS)
 
         if random_splits:
             # Extra Trees: one uniform threshold per (feature, node) in
@@ -527,15 +661,15 @@ def _fit_one_tree(x, y01, w, key, order0, xsorted, *, random_splits,
             u = rng.uniform(kt, (n_feat, n))
             thr_j = _fma(u, v_hi_j - v_lo_j, v_lo_j)
             thr_j = torch.where(thr_j >= v_hi_j, v_lo_j, thr_j)  # sklearn
-            thr_s = thr_j.gather(1, torch.clamp(s_rel, max=n - 1))
+            thr_s = thr_j.gather(-1, torch.clamp(s_rel, max=n - 1))
             left_i = (s_val <= thr_s) & active
             zero = torch.zeros_like(s_w)
             _, lw_tot = _prefix_stats(torch.where(left_i, s_w, zero),
                                       is_start, is_end)
             _, lwy_tot = _prefix_stats(torch.where(left_i, s_wy, zero),
                                        is_start, is_end)
-            lw_j = lw_tot[:, pos_j]
-            lwy_j = lwy_tot[:, pos_j]
+            lw_j = at_node(lw_tot, pos_j)
+            lwy_j = at_node(lwy_tot, pos_j)
             rw_j = tot_w_j - lw_j
             score_j = _proxy_score(lw_j, lwy_j, rw_j, tot_wy_j - lwy_j,
                                    nc_j & (lw_j > 0) & (rw_j > 0))
@@ -548,25 +682,26 @@ def _fit_one_tree(x, y01, w, key, order0, xsorted, *, random_splits,
             score_i = _proxy_score(lw_pre, lwy_pre, rw, tot_wy - lwy_pre,
                                    valid)
             best, best_p = _run_best(s_rel, score_i)
-            score_j = best[:, :n]
-            bpos_j = torch.clamp(best_p[:, :n], max=n - 1)
-            v_lo = s_val.gather(1, bpos_j)
-            v_hi = v_next.gather(1, bpos_j)
+            score_j = best[..., :n]
+            bpos_j = torch.clamp(best_p[..., :n], max=n - 1)
+            v_lo = s_val.gather(-1, bpos_j)
+            v_hi = v_next.gather(-1, bpos_j)
             thr_j = (v_lo + v_hi) / 2.0
             thr_j = torch.where(thr_j == v_hi, v_lo, thr_j)  # midpoint guard
-            lw_j = lw_pre.gather(1, bpos_j)
-            lwy_j = lwy_pre.gather(1, bpos_j)
+            lw_j = lw_pre.gather(-1, bpos_j)
+            lwy_j = lwy_pre.gather(-1, bpos_j)
             score_j = torch.where(torch.isfinite(score_j), score_j, minus_inf)
 
         # ---- feature choice (sklearn's random feature draw) --------------
         u_f = rng.uniform(kf, (n, n_feat)) if max_features is not None \
             else None
-        sel = _select_features(nc_j.T, u_f, max_features).T
+        sel = _select_features(nc_j.transpose(-1, -2), u_f,
+                               max_features).transpose(-1, -2)
         score_j = torch.where(sel, score_j, minus_inf)
-        best_f = torch.argmax(score_j, 0)                    # [N]
+        best_f = torch.argmax(score_j, -2)                   # [G, T, N]
 
-        def pick_f(t):                                       # [F,N] -> [N]
-            return t.gather(0, best_f[None])[0]
+        def pick_f(t):                  # [G, T, F, N] -> [G, T, N]
+            return t.gather(-2, best_f[..., None, :])[..., 0, :]
 
         best_score = pick_f(score_j)
         thr_node = pick_f(thr_j)
@@ -575,80 +710,94 @@ def _fit_one_tree(x, y01, w, key, order0, xsorted, *, random_splits,
 
         impure = (tot_wy_b > 0) & (tot_w_b - tot_wy_b > 0)
         can_split = torch.isfinite(best_score) & impure & present
-        rank = _exclusive_cumsum(can_split.to(torch.int64), 0)
+        rank = _exclusive_cumsum(can_split.to(torch.int64), -1)
         left_g = n_nodes + 2 * rank
         can_split = can_split & (left_g + 1 < max_nodes)     # capacity
 
         # ---- the level's window writes, then its children's covers ------
-        win = slice(level_base, level_base + n)
-        feature[win] = torch.where(can_split, best_f.to(torch.int32),
-                                   feature[win])
-        threshold[win] = torch.where(can_split, thr_node, threshold[win])
-        left[win] = torch.where(can_split, left_g.to(torch.int32), left[win])
-        right[win] = torch.where(can_split, (left_g + 1).to(torch.int32),
-                                 right[win])
+        write(feature, level_base, best_f, can_split)
+        write(threshold, level_base, thr_node, can_split)
+        write(left, level_base, left_g, can_split)
+        write(right, level_base, left_g + 1, can_split)
         child_vals, child_ok, _ = _emit_children(
-            can_split[None], lw_b[None], lwy_b[None], tot_w_b[None],
-            tot_wy_b[None])
-        cwin = slice(n_nodes, n_nodes + 2 * n)
-        value[cwin] = torch.where(child_ok[0, :, None], child_vals[0],
-                                  value[cwin])
+            *(t.flatten(0, 1) for t in (can_split, lw_b, lwy_b, tot_w_b,
+                                        tot_wy_b)))
+        write(value, n_nodes, child_vals.view(*lead, 2 * n, 2),
+              child_ok.view(*lead, 2 * n))
 
         # ---- route samples to children; park the rest -------------------
         rel_safe = torch.clamp(sample_rel, max=n - 1)
-        splits_mine = can_split[rel_safe] & (sample_rel < park)
-        xv = x.gather(1, best_f[rel_safe][:, None])[:, 0]
-        go_left = xv <= thr_node[rel_safe]
-        child_rel = 2 * rank[rel_safe] + torch.where(go_left, 0, 1)
+        splits_mine = can_split.gather(-1, rel_safe) & (sample_rel < park)
+        xv = x_t.gather(-1, best_f.gather(-1, rel_safe)[..., None])[..., 0]
+        go_left = xv <= thr_node.gather(-1, rel_safe)
+        child_rel = 2 * rank.gather(-1, rel_safe) + torch.where(go_left, 0, 1)
         sample_rel = torch.where(splits_mine, child_rel, park)
-        k_splits = int(can_split.sum())         # the one host read a level
-        n_nodes, level_base, d = n_nodes + 2 * k_splits, n_nodes, d + 1
+        n_split = int(can_split.sum()) if one \
+            else can_split.sum(-1, keepdim=True)
+        level_base, n_nodes = n_nodes, n_nodes + 2 * n_split
+        d += 1
 
     m = max_nodes
-    return (feature[:m], threshold[:m], left[:m], right[:m], value[:m],
-            n_nodes)
+    n_nodes = torch.tensor([[n_nodes]], dtype=torch.int32, device=dev) \
+        if one else n_nodes[..., 0].to(torch.int32)
+    return (feature[..., :m], threshold[..., :m], left[..., :m],
+            right[..., :m], value[..., :m, :], n_nodes)
 
 
-def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
-               sqrt_features, max_depth=48, max_nodes=None):
-    """Fit an ensemble on the exact grower, one tree after another. x
-    [N, F] f32; y [N] bool/int; w [N] >= 0 sample weights (0 = row
-    excluded); ``key`` a threefry key [2]. Returns a ``Forest`` with a
-    [n_trees, ...] leading axis.
+def fit_folds(x, y, w, keys, *, n_trees, bootstrap, random_splits,
+              sqrt_features, max_depth=48, max_nodes=None, tree_chunk=None,
+              fold_chunk=None):
+    """Fit one ensemble a fold on the exact grower, the folds' trees grown
+    as one batch (``_fit_trees_exact``). x [G, N, F] f32, y [G, N]
+    bool/int, w [G, N] >= 0 sample weights (0 = row excluded) and
+    ``keys`` [G, 2] threefry keys, one a fold. Returns a ``Forest`` with
+    [G, n_trees, ...] leading axes.
 
     DecisionTree = 1 tree, no bootstrap, no random splits, all features.
-    Keys as the JAX package's: tree t's key is split(key, n_trees)[t],
-    which splits into its bootstrap key and its grower key."""
-    n, n_feat = x.shape
+    Keys as the JAX package's: tree t of fold g grows from
+    split(keys[g], n_trees)[t], which splits into its bootstrap key and
+    its grower key. Each fold's forest equals ``fit_forest`` on that fold
+    bit for bit, for any batches: at most ``fold_chunk`` folds by
+    ``tree_chunk`` trees a batch (None: all)."""
+    n_fold, n, n_feat = x.shape
     if max_nodes is None:
         max_nodes = 2 * n
     max_features = max(1, int(n_feat ** 0.5)) if sqrt_features else None
     x = x.to(torch.float32)
     y01 = y.to(x.dtype)
     w = w.to(x.dtype)
-    # Each feature's value order, shared by every tree (weights never
-    # reorder values; parked rows are handled by the level's node ids).
-    order0 = torch.argsort(x.T, dim=1, stable=True)
-    xsorted = x.T.gather(1, order0)
-
-    kk = rng.split(rng.split(key, n_trees))
-    wt = bootstrap_weights(w, kk[:, 0]) if bootstrap \
-        else w.expand(n_trees, -1)
-    grown = [_fit_one_tree(x, y01, wt[t], kk[t, 1], order0, xsorted,
-                           random_splits=random_splits,
-                           max_features=max_features, max_depth=max_depth,
-                           max_nodes=max_nodes)
-             for t in range(n_trees)]
-    fields = [torch.stack(f) for f in list(zip(*grown))[:5]]
-    n_nodes = torch.tensor([g[5] for g in grown], dtype=torch.int32,
-                           device=x.device)
-    return Forest(*fields, n_nodes, max_depth)
+    xt = x.transpose(1, 2)
+    order0 = torch.argsort(xt, dim=-1, stable=True)          # [G, F, N]
+    xsorted = xt.gather(-1, order0)
+    kk = rng.split(rng.split(keys, n_trees))                 # [G, T, 2, 2]
+    wt = bootstrap_weights(w, kk[..., 0, :]) if bootstrap \
+        else w[:, None, :].expand(n_fold, n_trees, n)
+    parts = [list(_fit_trees_exact(
+        x[gs], y01[gs], wt[gs, ts], kk[gs, ts, 1], order0[gs], xsorted[gs],
+        random_splits=random_splits, max_features=max_features,
+        max_depth=max_depth, max_nodes=max_nodes))
+        for gs, ts in _batches(n_fold, n_trees, tree_chunk, fold_chunk)]
+    return Forest(*_joined(parts, n_fold, n_trees, tree_chunk, fold_chunk),
+                  max_depth)
 
 
-def predict_proba(forest, x):
-    """Mean over trees of the leaf class distributions (sklearn soft
-    vote). Traverses ``max_depth + 1`` levels of per-tree table lookups;
-    the tree mean sums in tree order, as the JAX package's reduce does."""
+def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
+               sqrt_features, max_depth=48, max_nodes=None, tree_chunk=None):
+    """Fit an ensemble on the exact grower on one fold: ``fit_folds`` with
+    one fold, at most ``tree_chunk`` trees a batch (None: all). x [N, F]
+    f32; y [N] bool/int; w [N] >= 0 sample weights; ``key`` a threefry
+    key [2]. Returns a ``Forest`` with a [n_trees, ...] leading axis."""
+    forest = fit_folds(
+        x[None], y[None], w[None], key[None], n_trees=n_trees,
+        bootstrap=bootstrap, random_splits=random_splits,
+        sqrt_features=sqrt_features, max_depth=max_depth,
+        max_nodes=max_nodes, tree_chunk=tree_chunk)
+    return Forest(*(f[0] for f in forest[:-1]), max_depth)
+
+
+def _leaf_probs(forest, x):
+    """Each tree's leaf class distribution for each sample, [T, S, 2]:
+    ``max_depth + 1`` levels of per-tree table lookups."""
     n_tree = forest.feature.shape[0]
     s = x.shape[0]
     xt = x.T.contiguous()
@@ -664,11 +813,23 @@ def predict_proba(forest, x):
                           left.gather(1, node), right.gather(1, node))
         node = torch.where(f < 0, node, nxt)
     v = forest.value.gather(1, node[..., None].expand(-1, -1, 2))
-    probs = v / torch.clamp(v.sum(-1, keepdim=True), min=1e-30)
-    total = probs[0]
+    return v / torch.clamp(v.sum(-1, keepdim=True), min=1e-30)
+
+
+def _tree_mean(probs):
+    """Mean over the tree axis (-3) of [..., T, S, 2], summed in tree
+    order, as the JAX package's reduce does."""
+    n_tree = probs.shape[-3]
+    total = probs[..., 0, :, :]
     for t in range(1, n_tree):
-        total = total + probs[t]
+        total = total + probs[..., t, :, :]
     return total / n_tree
+
+
+def predict_proba(forest, x):
+    """Mean over trees of the leaf class distributions (sklearn soft
+    vote), [S, 2]."""
+    return _tree_mean(_leaf_probs(forest, x))
 
 
 def predict(forest, x):
@@ -677,7 +838,13 @@ def predict(forest, x):
     return p[:, 1] > p[:, 0]
 
 
-def predict_batch(forests, x):
-    """``predict`` for a list of forests (one per fold) against a shared
-    matrix: [len(forests), N] bool."""
-    return torch.stack([predict(f, x) for f in forests])
+def predict_batch(forest, x):
+    """``predict`` of each fold's forest (a ``Forest`` with [G, T, ...]
+    leading axes, as the JAX package's ``predict_batch`` takes it) against
+    a shared matrix, the G x T trees traversed as one batch: [G, S] bool,
+    row g equal to ``predict`` of fold g's forest."""
+    n_fold, n_tree = forest.feature.shape[:2]
+    flat = Forest(*(f.reshape(n_fold * n_tree, *f.shape[2:])
+                    for f in forest[:-1]), forest.max_depth)
+    p = _tree_mean(_leaf_probs(flat, x).view(n_fold, n_tree, x.shape[0], 2))
+    return p[..., 1] > p[..., 0]

@@ -6,6 +6,7 @@ fold granularity. ``shap``: Tree SHAP values of the two paper
 configs, written as ``shap.pkl`` (a list of two float32 [N, F] arrays in
 ``config.SHAP_CONFIGS`` order)."""
 
+import json
 import os
 import pickle
 import sys
@@ -74,7 +75,7 @@ def _journal_fingerprint(engine, *, cv, max_depth, tree_overrides):
         "cv": cv,
         "n_folds": engine.n_folds,
         "max_depth": max_depth,
-        "grower": "hist",
+        "grower": trees.ensemble_grower(engine.grower),
         "tree_overrides": sorted((tree_overrides or {}).items()),
         "data": [list(engine.features.shape),
                  zlib.crc32(engine.labels_host.tobytes()),
@@ -86,15 +87,54 @@ def _dump(obj, path):
     atomic_write_bytes(path, pickle.dumps(obj))
 
 
+def _write_timing_meta(out_file, amortized_configs, fused_configs):
+    """Timing provenance beside the pickle, ``<out_file>.meta.json``, as the
+    JAX package writes it: the configs whose T_TRAIN/T_TEST a plan
+    amortized over its members (``batch_amortized``) and those whose
+    combined fit-and-predict wall is in T_TRAIN with T_TEST = 0.0
+    (``fused_combined``); every other config carries its own clocks. The
+    pickle keeps the reference's 4-element values, whose readers unpack
+    them strictly. Merges with the file an earlier run left, so a config
+    marked by any contributing run stays marked."""
+    meta_file = out_file + ".meta.json"
+    known, known_fused = set(), set()
+    if os.path.exists(meta_file):
+        with open(meta_file) as fd:
+            prev = json.load(fd)
+        known = {tuple(k) for k in prev["batch_amortized"]}
+        known_fused = {tuple(k) for k in prev.get("fused_combined", [])}
+    merged = sorted(known | {tuple(k) for k in amortized_configs})
+    merged_fused = sorted(known_fused | {tuple(k) for k in fused_configs})
+    atomic_write_bytes(meta_file, json.dumps({
+        "schema": "flake16-timing-meta-v1",
+        "note": ("configs under batch_amortized have batch-amortized "
+                 "T_TRAIN/T_TEST (mesh batch wall divided evenly); "
+                 "configs under fused_combined ran as one fused "
+                 "dispatch (combined wall in T_TRAIN, T_TEST=0.0); "
+                 "all other configs carry true per-config clocks"),
+        "batch_amortized": [list(k) for k in merged],
+        "fused_combined": [list(k) for k in merged_fused],
+    }, indent=1).encode())
+
+
 def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                  max_depth=48, tree_overrides=None, configs=None,
-                 progress_out=sys.stdout, cv="stratified", device=None):
+                 progress_out=sys.stdout, cv="stratified", device=None,
+                 fused=False, planner=False, dispatch_trees=None,
+                 dispatch_folds=None):
     """Run the sweep over ``configs`` (key tuples, as the JAX package's
     ``write_scores`` takes them; default the whole grid) and pickle the
     scores. ``cv="lopo"`` runs leave-one-project-out CV; the default
     ``out_file`` follows the scheme (``scores.pkl`` or
     ``scores-lopo.pkl``), so a LOPO run never resumes from a stratified
     ledger. Runs on ``cuda`` unless ``device`` says otherwise.
+
+    ``planner=True`` runs the configs as family plans and ``fused=True``
+    each config through the fold-batched fit (``SweepEngine``): the same
+    scores, with combined (and, for plans, amortized) clocks, which
+    ``<out_file>.meta.json`` records (``_write_timing_meta``, written on
+    every run). ``dispatch_trees``/``dispatch_folds`` bound the trees and
+    folds those paths grow as one batch; they change no result.
 
     Crash tolerance: a write-ahead journal rides beside the pickle at
     ``<out_file>.journal`` — fsync'd,
@@ -114,7 +154,9 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
         load_tests(tests_file))
     engine = SweepEngine(feats, labels, projects, names, pids,
                          max_depth=max_depth, tree_overrides=tree_overrides,
-                         cv=cv, device=device)
+                         cv=cv, device=device, fused=fused,
+                         planner_mode=planner, dispatch_trees=dispatch_trees,
+                         dispatch_folds=dispatch_folds)
     ledger = _load_ledger(out_file)
     fp = _journal_fingerprint(engine, cv=cv, max_depth=max_depth,
                               tree_overrides=tree_overrides)
@@ -144,6 +186,8 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
         jr.close(remove=False)
         raise
     _dump(scores, out_file)
+    _write_timing_meta(out_file, engine.amortized_configs,
+                       engine.fused_configs)
     # The durable pickle supersedes the journal. Quarantined configs are
     # absent from both, so the next run re-attempts exactly them.
     jr.finalize()

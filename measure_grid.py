@@ -18,6 +18,19 @@ other checkout DIR (a ``git archive`` of another commit), each in its own
 process, in turns (A B B A for two trees), ``--reps`` timed runs a process
 after one untimed. Output: ``chiprun_out/measure_config.json``.
 
+``--planner`` runs the grid ``--pairs`` times (default 2) in each of two
+modes in the same call, each run in a directory of its own: ``scores
+planner`` (the plan executor) and the default ``scores``, in turns (P D D
+P for two pairs), the kernels built once before any. Every run's wall and
+its sums by model, and each pair's planner / default ratios, go to
+``chiprun_out/measure_grid.json`` (``runs``, ``pairs``).
+
+``--launches --against DIR`` counts the device launches, by kernel name,
+of one profiled ``run_config`` of each ``--config`` (default: the RF, ET
+and DT configs below) in this checkout and in DIR, each in a process of
+its own, and reports the names whose counts differ. Output:
+``chiprun_out/launches.json``.
+
 ``--check-profiler`` profiles one run of each of ``--config`` (or of the
 RF, ET and DT configs that ``chip_smoke.py`` profiles) and holds
 ``chip_smoke.py``'s reading of the profiler's raw device events against
@@ -26,6 +39,7 @@ RF, ET and DT configs that ``chip_smoke.py`` profiles) and holds
 """
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -63,6 +77,53 @@ for _ in range(reps):
     walls.append(time.perf_counter() - t0)
 print(json.dumps(walls))
 """
+
+
+# One checkout's device launches by kernel name over one profiled run of a
+# config (after one unprofiled run); run with that checkout as the working
+# directory.
+_COUNT_LAUNCHES = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from chip_smoke import _device_kernels
+from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+tests_file, config = sys.argv[1], tuple(sys.argv[2].split("/"))
+engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+engine.run_config(config)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    engine.run_config(config)
+    torch.cuda.synchronize()
+print(json.dumps({name: n for _, name, n in _device_kernels(prof)}))
+"""
+
+
+def launches_against(configs, other):
+    """Launches by kernel name of each config here and in ``other``."""
+    trees = {"this": REPO, "other": os.path.abspath(other)}
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tests_file = _make_tests(tmp)
+        for config in configs:
+            counts = {}
+            for name, tree in trees.items():
+                run = subprocess.run(
+                    [sys.executable, "-c", _COUNT_LAUNCHES, tests_file,
+                     config], cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+                    capture_output=True, text=True, timeout=900)
+                if run.returncode != 0:
+                    raise RuntimeError(f"{tree}: exit {run.returncode}\n"
+                                       f"{run.stderr[-4000:]}")
+                counts[name] = json.loads(run.stdout.strip().splitlines()[-1])
+            a, b = counts["this"], counts["other"]
+            out.append({"config": config, "this": sum(a.values()),
+                        "other": sum(b.values()),
+                        "differ": {k[:160]: [a.get(k, 0), b.get(k, 0)]
+                                   for k in sorted(set(a) | set(b))
+                                   if a.get(k, 0) != b.get(k, 0)}})
+    return {"other": other, "configs": out}
 
 
 def _make_tests(tmp):
@@ -180,6 +241,12 @@ def main():
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--check-profiler", action="store_true")
+    ap.add_argument("--launches", action="store_true",
+                    help="with --against: device launches by kernel name")
+    ap.add_argument("--planner", action="store_true",
+                    help="time `scores planner` and `scores` in turns")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="with --planner: runs of each mode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure_grid: no CUDA device", file=sys.stderr)
@@ -190,6 +257,13 @@ def main():
         check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    if args.launches:
+        if len(args.against) != 1:
+            ap.error("--launches compares with exactly one --against")
+        report = launches_against(args.config or CHECK_CONFIGS,
+                                  args.against[0])
+        _write_report("launches.json", dict(report, nvidia_smi=smi))
+        return 0
     if args.against:
         if len(args.config) != 1:
             ap.error("--against times exactly one --config")
@@ -205,14 +279,52 @@ def main():
             return 1
     if args.check_profiler or args.against:
         return 0
-    return measure_grid(smi)
+    if not args.planner:
+        report = grid_run(["scores"], "measure_grid.log")
+        if report is None:
+            return 1
+        _write_report("measure_grid.json", dict(report, nvidia_smi=smi))
+        return 0
+    from flake16_framework_tpu_torch.kernels import build
+
+    build.build("hist_cumsum")             # outside both walls
+    argvs = {"planner": ["scores", "planner"], "default": ["scores"]}
+    runs = []
+    for i in range(args.pairs):
+        order = ("planner", "default") if i % 2 == 0 \
+            else ("default", "planner")
+        for mode in order:
+            run = grid_run(argvs[mode], f"measure_grid_{mode}_{i}.log")
+            if run is None:
+                return 1
+            runs.append(dict(run, mode=mode, pair=i))
+    same = len({r["scores_sha256"] for r in runs}) == 1
+    pairs = []
+    for i in range(args.pairs):
+        p, d = (next(r for r in runs if r["pair"] == i and r["mode"] == m)
+                for m in ("planner", "default"))
+        pairs.append({
+            "order": [r["mode"] for r in runs if r["pair"] == i],
+            "planner_over_default_wall": p["wall_s"] / d["wall_s"],
+            "planner_over_default_by_model": {
+                m: p["by_model"][m]["sum_s"] / d["by_model"][m]["sum_s"]
+                for m in d["by_model"]}})
+    _write_report("measure_grid.json", {
+        "nvidia_smi": smi, "runs": runs, "pairs": pairs,
+        "scores_equal": same})
+    if not same:
+        print("measure_grid: the runs' scores differ (planner and default "
+              "must agree)", file=sys.stderr)
+        return 1
+    return 0
 
 
-def measure_grid(smi):
-    """The whole grid through the CLI; returns the exit code."""
+def grid_run(argv, log_name):
+    """The whole grid through the CLI (``argv`` after the module name), in
+    a directory of its own; returns its report, or None if it failed."""
     from flake16_framework_tpu_torch import config as cfg
 
-    log_path = os.path.join(REPO, "chiprun_out", "measure_grid.log")
+    log_path = os.path.join(REPO, "chiprun_out", log_name)
     with tempfile.TemporaryDirectory() as tmp:
         _make_tests(tmp)
         env = dict(os.environ, PYTHONPATH=REPO)
@@ -220,15 +332,17 @@ def measure_grid(smi):
             t0 = time.time()
             rc = subprocess.run(
                 [sys.executable, "-m", "flake16_framework_tpu_torch",
-                 "scores"], cwd=tmp, env=env, stdout=log,
+                 *argv], cwd=tmp, env=env, stdout=log,
                 stderr=subprocess.STDOUT, timeout=3000).returncode
             wall = time.time() - t0
         if rc != 0:
-            print(f"measure_grid: scores exited {rc}; see {log_path}",
-                  file=sys.stderr)
-            return 1
+            print(f"measure_grid: {' '.join(argv)} exited {rc}; see "
+                  f"{log_path}", file=sys.stderr)
+            return None
         with open(os.path.join(tmp, "scores.pkl"), "rb") as fd:
             scores = pickle.load(fd)
+        with open(os.path.join(tmp, "scores.pkl.meta.json")) as fd:
+            meta = json.load(fd)
     with open(log_path) as fd:
         m = re.search(r"^journal: (\d+) appends in ([0-9.]+) s of "
                       r"([0-9.]+) s$", fd.read(), re.M)
@@ -260,13 +374,16 @@ def measure_grid(smi):
         f1 = m.pop("f1")
         m["mean_s"] = m["sum_s"] / m["configs"]
         m["f1_mean"] = math.fsum(f1) / len(f1) if f1 else None
-    report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda,
-              "configs": len(scores), "wall_s": wall,
-              "config_sum_s": sum(m["sum_s"] for m in by_model.values()),
-              "by_model": by_model, "journal": journal}
-    _write_report("measure_grid.json", report)
-    return 0
+    return {"command": " ".join(argv),
+            "device": torch.cuda.get_device_name(0),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "configs": len(scores), "wall_s": wall,
+            "config_sum_s": sum(m["sum_s"] for m in by_model.values()),
+            "by_model": by_model, "journal": journal,
+            "meta_fused_combined": len(meta["fused_combined"]),
+            "meta_batch_amortized": len(meta["batch_amortized"]),
+            "scores_sha256": hashlib.sha256(pickle.dumps(
+                [scores[k][2:] for k in grid])).hexdigest()}
 
 
 if __name__ == "__main__":

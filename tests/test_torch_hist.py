@@ -98,3 +98,43 @@ def test_check_inputs_rejects_what_the_kernel_cannot_take():
         else:
             with pytest.raises(ValueError, match="tiles"):
                 hist.check_inputs(*big, bins16, 4, 16)
+
+
+@pytest.mark.parametrize("groups,case", [
+    (3, dict(seed=12, n_tree=6)),
+    (2, dict(seed=13, n_tree=4, n_nodes=1)),
+    (6, dict(seed=14, n_tree=6, mode="halves")),
+    (1, dict(seed=15)),
+])
+def test_plain_groups_bitwise_vs_one_group_each(groups, case):
+    """``cum_hists_plain`` with G bin groups equals G separate calls, one
+    group's trees against its own bins each; a [F, N] ``bin_t`` is one
+    group."""
+    rel, w, wy, _, n_nodes, n_bins = _inputs(**case)
+    n = rel.shape[1]
+    bins = np.random.RandomState(case["seed"]).randint(
+        0, n_bins, size=(groups, 5, n)).astype(np.uint8)
+    rel, w, wy, bins = map(torch.from_numpy, (rel, w, wy, bins))
+    got = hist.cum_hists_plain(rel, w, wy, bins, n_nodes, n_bins)
+    hist.check_inputs(rel, w, wy, bins, n_nodes, n_bins)
+    tpg = rel.shape[0] // groups
+    for g in range(groups):
+        t = slice(g * tpg, (g + 1) * tpg)
+        for flat in (bins[g], bins[g:g + 1]):
+            want = hist.cum_hists_plain(rel[t], w[t], wy[t], flat, n_nodes,
+                                        n_bins)
+            for a, b in zip(got, want):
+                assert a[t].numpy().tobytes() == b.numpy().tobytes()
+
+
+def test_check_inputs_takes_groups_that_divide_the_trees():
+    rel, w, wy, bins = (torch.from_numpy(a) for a in _inputs(0)[:4])
+    hist.check_inputs(rel, w, wy, bins[None].expand(3, -1, -1).contiguous(),
+                      4, 16)                    # 3 trees, 3 groups
+    with pytest.raises(ValueError, match="do not split"):
+        hist.check_inputs(rel, w, wy, bins[None].expand(2, -1, -1)
+                          .contiguous(), 4, 16)
+    with pytest.raises(ValueError, match=r"\[F, N\] or \[G, F, N\]"):
+        hist.check_inputs(rel, w, wy, bins[None, None], 4, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist.check_inputs(rel, w, wy, bins[None, :, :-1], 4, 16)

@@ -27,6 +27,8 @@ import textwrap
 import jax
 import numpy as np
 import pytest
+import torch
+from jax.sharding import Mesh
 
 from flake16_framework_tpu import pipeline as jpipe
 from flake16_framework_tpu.data import load_tests as jload_tests
@@ -52,6 +54,18 @@ CONFIGS = [
     ("NOD", "Flake16", "Scaling", "SMOTE", "Decision Tree"),
 ]
 TINY = {"Extra Trees": 4, "Random Forest": 4}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several
+    workers on the machine's cores, and a fold batch's tensors pass the
+    size above which torch's CPU kernels split across threads, whose
+    barriers then wait on descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -330,6 +344,40 @@ def test_killed_sweep_resumes_in_the_other_package(data, tmp_path,
                 tj, out, progress_out=log, device="cpu", **kw)}
     _preempted(monkeypatch, JOURNALS[killed], 13,
                lambda: runs[killed](io.StringIO()))
+    log = io.StringIO()
+    resumed = runs[resumer](log)
+    assert "journal: replayed 1 completed config(s) and 3 partial " \
+        "fold(s)" in log.getvalue()
+    _same_scores(resumed, ref)
+    assert not os.path.exists(tjournal.journal_path(out))
+
+
+@pytest.mark.parametrize("killed,resumer", [("torch", "torch"),
+                                            ("torch", "jax"),
+                                            ("jax", "torch")])
+def test_killed_planner_sweep_resumes_in_either_package(
+        data, tmp_path, monkeypatch, killed, resumer):
+    """Under ``planner`` (one plan a family: RF, then DT, then ET), a sweep
+    preempted at a member's fold record (the RF member complete, the DT
+    member through fold 2) resumes, in the same package or the other, to
+    the JAX package's uninterrupted scores: both write the plan path's
+    fold records with the same key bytes, and the resumer finishes the
+    partial member fold by fold and runs the untouched plan."""
+    tj, ref = data
+    out = str(tmp_path / "scores.pkl")
+    kw = dict(configs=CONFIGS, max_depth=8, tree_overrides=TINY,
+              planner=True)
+    one = Mesh(np.array(jax.devices()[:1]), ("config",))
+    runs = {"jax": lambda log: jpipe.write_scores(tj, out, progress_out=log,
+                                                  mesh=one, **kw),
+            "torch": lambda log: tpipe.write_scores(
+                tj, out, progress_out=log, device="cpu", **kw)}
+    _preempted(monkeypatch, JOURNALS[killed], 13,
+               lambda: runs[killed](io.StringIO()))
+    rep = tjournal.replay(tjournal.journal_path(out), warn_out=None)
+    assert list(rep.ledger) == [CONFIGS[0]]
+    assert set(rep.partial) == {CONFIGS[2]} and \
+        set(rep.partial[CONFIGS[2]]) == {0, 1, 2}
     log = io.StringIO()
     resumed = runs[resumer](log)
     assert "journal: replayed 1 completed config(s) and 3 partial " \

@@ -70,6 +70,22 @@ def test_hist_cumsum_f32_passes_bitwise_vs_plain(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_hist_cumsum_groups_bitwise_vs_plain(case):
+    """Bins in groups, [G, F, N]: tree t reads group t // (T / G). One
+    group a tree (G = T), and the trees in one group given as [1, F, N]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rel, w, wy, bins, n_nodes, n_bins = hist_inputs(**case)
+    n_tree = rel.shape[0]
+    grouped = np.random.RandomState(case["seed"] + 1).randint(
+        0, n_bins, size=(n_tree,) + bins.shape).astype(np.uint8)
+    for b in (grouped, bins[None]):
+        _hist_check([torch.from_numpy(a).cuda() for a in (rel, w, wy, b)],
+                    n_nodes, n_bins)
+
+
+@pytest.mark.cuda
 def test_hist_cumsum_bitwise_on_real_fit_steps(monkeypatch):
     """Every BFS step of a small card fit (8 trees, depth 12), RF and ET:
     the recorded inputs through the kernel, bitwise against plain and
@@ -332,3 +348,31 @@ def test_run_config_with_journal_equals_without(tmp_path, monkeypatch):
     jr.close()
     assert fits == []          # every fold came from the journal
     assert pickle.dumps(resumed[2:]) == pickle.dumps(plain[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [
+    ("OD", "Flake16", "PCA", "SMOTE Tomek", "Extra Trees"),
+    ("NOD", "Flake16", "Scaling", "SMOTE", "Decision Tree"),
+], ids=["et", "dt"])
+def test_fused_config_equals_run_config(tmp_path, keys):
+    """A config at full width (N = 4000 over 26 projects, 100 trees,
+    depth 48) on the card through the fused path (its 10 folds' trees
+    grown as one batch: through K1 with 10 bin groups, or on the exact
+    grower) gives the default path's scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pickle
+
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+
+    tj = str(tmp_path / "tests.json")
+    make_tests_json(tj, n_tests=4000, n_projects=26, seed=0)
+    arrays = tests_to_arrays(load_tests(tj))
+    plain = SweepEngine(*arrays).run_config(keys)
+    before = hist.cum_hists.launches
+    fused = SweepEngine(*arrays, fused=True).run_config(keys)
+    assert pickle.dumps(fused[2:]) == pickle.dumps(plain[2:])
+    assert (hist.cum_hists.launches > before) == (keys[4] != "Decision Tree")

@@ -120,9 +120,9 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="Unrecognized shap option"):
         tmain.main(["shap", "grid"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
-        tmain.main(["scores", "planner"])
+        tmain.main(["scores", "profile=trace"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
-        tmain.main(["scores", "lopo", "fused"])
+        tmain.main(["scores", "lopo", "fussed"])
 
 
 def test_cli_scores_runs_the_whole_grid(monkeypatch):

@@ -582,11 +582,7 @@ def test_overrun_under_the_sweep_quarantines_then_resume(sweep_dir,
 
 def test_cli_rejects_options_of_later_slices():
     for command in ("scores", "resume"):
-        for opt, what in (("planner", "plan executor"),
-                          ("fused", "plan executor"),
-                          ("dispatch=8", "plan executor"),
-                          ("profile=/tmp/x", "telemetry")):
-            with pytest.raises(ValueError, match=what):
-                tmain.main([command, opt])
+        with pytest.raises(ValueError, match="telemetry"):
+            tmain.main([command, "profile=/tmp/x"])
         with pytest.raises(ValueError, match="Unrecognized"):
             tmain.main([command, "bogus"])

@@ -107,8 +107,9 @@ def test_width_and_chunk_are_results_neutral(monkeypatch):
     grow = dict(random_splits=False, max_features=4, max_depth=8,
                 max_nodes=2 * x.shape[0], node_batch=16)
     y01 = torch.from_numpy(y).float()
-    parts = [ttrees._grow_trees(xt, bin_t, edges, y01, wt[s], kk[s, 1],
-                                **grow) for s in (slice(0, 2), slice(2, 3))]
+    parts = [ttrees._grow_trees(xt[None], bin_t[None], edges, y01[None],
+                                wt[s], kk[s, 1], **grow)
+             for s in (slice(0, 2), slice(2, 3))]
     for fld, got in zip(FIELDS, (torch.cat(f, 0) for f in zip(*parts))):
         assert torch.equal(getattr(a, fld), got), fld
 
@@ -146,8 +147,10 @@ def test_predict_on_a_jax_forest(model):
     np.testing.assert_array_equal(
         ttrees.predict(tf, torch.from_numpy(xq)).numpy(),
         np.asarray(jtrees.predict(jf, jnp.asarray(xq))))
+    pair = ttrees.Forest(*(torch.stack([a, a]) for a in tf[:-1]),
+                         tf.max_depth)
     np.testing.assert_array_equal(
-        ttrees.predict_batch([tf, tf], torch.from_numpy(xq)).numpy(),
+        ttrees.predict_batch(pair, torch.from_numpy(xq)).numpy(),
         np.asarray(jtrees.predict_batch(
             jax.tree.map(lambda a: jnp.stack([a, a]), jf), jnp.asarray(xq))))
 
@@ -173,7 +176,7 @@ def test_et_threshold_draw_rounds_once():
     kg = rng.split(torch.from_numpy(np.asarray(tree_key, np.int64)))[:, 1]
 
     fields = ttrees._grow_trees(
-        xt, bin_t, edges, torch.from_numpy(y).float(),
+        xt[None], bin_t[None], edges, torch.from_numpy(y).float()[None],
         torch.from_numpy(w)[None], kg, random_splits=True, max_features=4,
         max_depth=48, max_nodes=8000, node_batch=128)
     _assert_forest_equal(ttrees.Forest(*fields, 48), want)
