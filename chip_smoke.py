@@ -68,6 +68,14 @@ DT_CONFIGS = (
     ("OD", "Flake16", "PCA", "SMOTE Tomek", "Decision Tree"),
 )
 LOPO_CONFIGS = (MAIN_CONFIGS[0], DT_CONFIGS[0])
+# The whole-grid SHAP phase: the two paper SHAP configs (ET, RF) and a
+# Decision Tree.
+GRID_CONFIGS = (
+    ("NOD", "Flake16", "Scaling", "SMOTE Tomek", "Extra Trees"),
+    ("OD", "Flake16", "Scaling", "SMOTE", "Random Forest"),
+    DT_CONFIGS[0],
+)
+N_EXPLAIN, N_BACKGROUND = 64, 32
 N_TESTS, N_PROJECTS, N_BINS, NODE_BATCH = 4000, 26, 64, 128
 
 
@@ -385,25 +393,21 @@ def unit_ops_division(u, n_samples):
     return float((9.0 * u * u + 21.0 * u).sum()) * n_samples
 
 
-def check_unit_kernel(tests_file):
-    """K2 against its plain version on the real buckets of both full-width
-    SHAP forests (``SHAP_CONFIGS``), every bucket whole at S = 4000: the
-    main path's shapes. The plain version walks a bucket in row batches
-    (``PLAIN_ROWS``) and sums them. Two kernel runs must be bitwise equal.
-    ``ms`` and ``plain_ms`` are timed on the same inputs."""
-    from flake16_framework_tpu_torch.config import SHAP_CONFIGS
-    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+def unit_report(members):
+    """K2 against its plain version on every whole bucket of each member's
+    forest, (keys, forest, x [S, F]) each, at the member's S. The plain
+    version walks a bucket in row batches (``PLAIN_ROWS``) and sums them.
+    Two kernel runs must be bitwise equal. ``ms`` and ``plain_ms`` are
+    timed on the same inputs; the bound is the operations of these inputs
+    (``unit_ops``) or their bytes, whichever is larger."""
     from flake16_framework_tpu_torch.kernels.treeshap_unit import (
         unit_shap, unit_shap_plain,
     )
     from flake16_framework_tpu_torch.ops.treeshap import bucket_inputs
-    from flake16_framework_tpu_torch.pipeline import fit_shap_forest
 
-    feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
     buckets = []
-    for keys in SHAP_CONFIGS:
-        xp, forest = fit_shap_forest(keys, feats, labels)
-        x = xp.contiguous()
+    for keys, forest, x in members:
+        x = x.contiguous()
         for cap, args in bucket_inputs(forest, x.shape[1]):
             got = unit_shap(*args, x)
             again = unit_shap(*args, x)
@@ -466,8 +470,25 @@ def check_unit_kernel(tests_file):
         "bound_ms_division": sum(b["ops_division"] for b in buckets)
         / F32_OPS_PER_S * 1e3,
         "library_ms": None,
-        "samples": N_TESTS, "per_config": per_config, "buckets": buckets,
+        "samples": members[0][2].shape[0], "per_config": per_config,
+        "buckets": buckets,
     }
+
+
+def check_unit_kernel(tests_file):
+    """K2 on the real buckets of both full-width SHAP forests
+    (``SHAP_CONFIGS``), every bucket whole at S = 4000: the ``shap``
+    verb's shapes (``unit_report``)."""
+    from flake16_framework_tpu_torch.config import SHAP_CONFIGS
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.pipeline import fit_shap_forest
+
+    feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
+    members = []
+    for keys in SHAP_CONFIGS:
+        xp, forest = fit_shap_forest(keys, feats, labels)
+        members.append((keys, forest, xp))
+    return unit_report(members)
 
 
 def check_small_reference():
@@ -477,8 +498,12 @@ def check_small_reference():
     small sweep gives equal counts."""
     from flake16_framework_tpu_torch import rng
     from flake16_framework_tpu_torch.ops import trees
-    from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
-    from flake16_framework_tpu_torch.utils.synth import make_tests_json
+    from flake16_framework_tpu_torch.pipeline import (
+        SHAP_MODES, shap_grid, write_scores, write_shap,
+    )
+    from flake16_framework_tpu_torch.utils.synth import (
+        make_dataset, make_tests_json,
+    )
 
     rs = np.random.RandomState(1)
     x = rs.randn(600, 16).astype(np.float32)
@@ -531,6 +556,36 @@ def check_small_reference():
                                  f"by {err} (max {ref})")
         errs.append(err)
     out["small_shap_max_abs_err"] = errs
+
+    # The grid's configs without their scaler: the card's and the CPU's
+    # column means and variances may differ by an ulp (another reduction
+    # order), and so may the forests grown on them; given the same
+    # samples, the two grow the same forests, and the explainers are held
+    # on those.
+    feats, labels, _ = make_dataset(n_tests=400, n_projects=6, seed=2)
+    kw = dict(n_explain=64, n_background=32, max_depth=12,
+              configs=[k[:2] + ("None",) + k[3:] for k in GRID_CONFIGS],
+              arrays=(feats, labels),
+              progress_out=io.StringIO(),
+              tree_overrides={"Random Forest": 8, "Extra Trees": 8})
+    out["small_shap_grid_max_abs_err"] = {}
+    for mode in SHAP_MODES:
+        cpu = shap_grid(mode=mode, device="cpu", **kw)
+        gpu = shap_grid(mode=mode, **kw)
+        _require(list(gpu) == list(cpu), f"small shap_grid {mode}: keys")
+        errs = []
+        for name, c in cpu.items():
+            g = gpu[name]
+            err = float(np.abs(g - c).max())
+            ref = float(np.abs(c).max())
+            if err > SHAP_TOL[0] * ref + SHAP_TOL[1]:
+                raise AssertionError(f"small shap_grid {mode} {name}: card "
+                                     f"and CPU differ by {err} (max {ref})")
+            if mode == "interaction":
+                _require(np.array_equal(g, g.transpose(0, 2, 1)),
+                         f"small shap_grid {name}: not symmetric")
+            errs.append(err)
+        out["small_shap_grid_max_abs_err"][mode] = max(errs)
     return out
 
 
@@ -861,6 +916,160 @@ def run_shap_path(tmp, tj):
                     "max_abs_phi": float(np.abs(values).max()),
                     "n_nodes_max": int(r["forest"].n_nodes.max())})
     return launches, res, wall
+
+
+@contextlib.contextmanager
+def _recorded_members():
+    """Keeps, while open, each result of ``pipeline.shap_for_config`` (the
+    grid's members) with its peak allocated device memory. Yields the
+    list of results."""
+    from flake16_framework_tpu_torch import pipeline
+
+    real = pipeline.shap_for_config
+    kept = []
+
+    def recorder(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        kept.append(dict(res, keys=args[0], peak_allocated_gb=torch.cuda
+                         .max_memory_allocated() / 1e9))
+        return res
+
+    pipeline.shap_for_config = recorder
+    try:
+        yield kept
+    finally:
+        pipeline.shap_for_config = real
+
+
+def run_shap_grid_path(tmp, tj):
+    """``pipeline.shap_grid`` at full width on ``GRID_CONFIGS`` in each of
+    its three modes (``explain=64``, ``background=32``), with the kernels'
+    launch counts set to 0 just before the three runs and read just
+    after: each ensemble member's fit launches K1, the path mode K2.
+    Checks each ``shap-<mode>.pkl`` (keys, f32, shapes, finite), the path
+    mode's local accuracy (|sum_f phi_f - (p0(x) - E[p0])|), the
+    interventional mode's (|sum_f phi_f - (p0(x) - mean_b p0(b))|), both
+    within LOCAL_ACCURACY_TOL, and the interaction mode's bitwise
+    symmetry and row sums (the same member's path values, within
+    SHAP_TOL). Returns (launches, member rows, per-mode walls and
+    launches, the path members as (keys, forest, x[:64]) for
+    ``unit_report``)."""
+    from flake16_framework_tpu_torch.ops.trees import predict_proba
+    from flake16_framework_tpu_torch.ops.treeshap import expected_p0
+    from flake16_framework_tpu_torch.pipeline import SHAP_MODES, shap_grid
+
+    names = ["/".join(k) for k in GRID_CONFIGS]
+    rows, modes, path = [], {}, {}
+    _reset_counts()
+    for mode in SHAP_MODES:
+        out_file = os.path.join(tmp, f"shap-{mode}.pkl")
+        before = _read_counts()
+        t0 = time.time()
+        with _recorded_members() as members:
+            values = shap_grid(tj, out_file, mode=mode, n_explain=N_EXPLAIN,
+                               n_background=N_BACKGROUND, max_depth=48,
+                               configs=list(GRID_CONFIGS),
+                               progress_out=io.StringIO())
+        wall = time.time() - t0
+        after = _read_counts()
+        with open(out_file, "rb") as fd:
+            on_disk = pickle.load(fd)
+        _require(on_disk["mode"] == mode and on_disk["n_explain"] == N_EXPLAIN
+                 and on_disk["n_background"] == (
+                     N_BACKGROUND if mode == "interventional" else 0),
+                 f"shap-{mode}.pkl header {on_disk['mode']} "
+                 f"{on_disk['n_explain']} {on_disk['n_background']}")
+        _require(sorted(on_disk["values"]) == sorted(names)
+                 and list(values) == list(on_disk["values"]),
+                 f"shap-{mode}.pkl keys {list(on_disk['values'])}")
+        for m in members:
+            name = "/".join(m["keys"])
+            v = on_disk["values"][name]
+            _require(np.array_equal(v, m["values"]), f"{name}: pickled "
+                     f"values differ from the member's")
+            f = m["x"].shape[1]
+            shape = (N_EXPLAIN, f, f) if mode == "interaction" \
+                else (N_EXPLAIN, f)
+            _require(v.dtype == np.float32 and v.shape == shape,
+                     f"{mode} {name}: {v.dtype} {v.shape}")
+            _require(bool(np.isfinite(v).all()), f"{mode} {name}: not finite")
+            x = m["x"][:N_EXPLAIN]
+            p0 = predict_proba(m["forest"], x)[:, 0]
+            row = {"mode": mode, "config": name, "fit_s": m["fit_s"],
+                   "explain_s": m["explain_s"],
+                   "peak_allocated_gb": m["peak_allocated_gb"],
+                   "n_nodes_max": int(m["forest"].n_nodes.max()),
+                   "max_abs_value": float(np.abs(v).max())}
+            if mode == "path":
+                gap = (p0 - expected_p0(m["forest"])).cpu().numpy()
+                path[name] = (v, (m["keys"], m["forest"], x))
+            elif mode == "interventional":
+                base = predict_proba(m["forest"], m["x"][:N_BACKGROUND])[:, 0]
+                gap = (p0 - base.mean()).cpu().numpy()
+            if mode != "interaction":
+                err = float(np.abs(v.astype(np.float64).sum(1) - gap).max())
+                _require(err <= LOCAL_ACCURACY_TOL,
+                         f"{mode} {name}: local accuracy off by {err}")
+                row["local_accuracy_max_err"] = err
+            else:
+                _require(np.array_equal(v, v.transpose(0, 2, 1)),
+                         f"interaction {name}: not symmetric")
+                ref = path[name][0]
+                err = float(np.abs(v.sum(2) - ref).max())
+                _require(err <= SHAP_TOL[0] * float(np.abs(ref).max())
+                         + SHAP_TOL[1], f"interaction {name}: row sums off "
+                         f"the path values by {err}")
+                row["row_sum_vs_path_max_err"] = err
+            rows.append(row)
+        modes[mode] = {"wall_s": wall, "launches": {
+            k: after[k] - before[k] for k in after}}
+    launches = _read_counts()
+    _require(launches["hist_cumsum"] > 0 and launches["treeshap_unit"] > 0,
+             f"shap_grid path launches {launches}")
+    _require(modes["path"]["launches"]["treeshap_unit"]
+             == launches["treeshap_unit"], "K2 launched outside path mode")
+    return launches, rows, modes, [p[1] for p in path.values()]
+
+
+def profile_explains(members):
+    """Each ensemble member's explain in each mode (``x`` its first 64
+    preprocessed samples, the interventional background their first 32)
+    timed once unprofiled, after one warm run, and once more under the
+    profiler: wall, launches, device busy time, idle share and the top
+    kernels."""
+    from flake16_framework_tpu_torch.ops import treeshap
+
+    engines = {
+        "path": treeshap.forest_shap_class0,
+        "interventional": lambda f, x: treeshap.forest_shap_interventional(
+            f, x, x[:N_BACKGROUND]),
+        "interaction": treeshap.forest_shap_interactions,
+    }
+    out = []
+    for keys, forest, x in members:
+        if keys[4] == "Decision Tree":
+            continue
+        for mode, fn in engines.items():
+            fn(forest, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(forest, x)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            kernels = _profiled(lambda: fn(forest, x))
+            busy_ms = sum(k[0] for k in kernels)
+            out.append({"config": "/".join(keys), "mode": mode,
+                        "wall_s": wall_s,
+                        "kernel_launches": sum(k[2] for k in kernels),
+                        "device_busy_ms": busy_ms,
+                        "device_idle_share": 1.0 - busy_ms / 1e3 / wall_s,
+                        "top_kernels": [{"name": n[:120], "ms": ms,
+                                         "count": c}
+                                        for ms, n, c in kernels[:8]]})
+    return out
 
 
 # The crash-tolerance drills run ``write_scores`` in child processes on
@@ -1341,6 +1550,42 @@ def main():
                   f"{c['local_accuracy_max_err']:.3g}", flush=True)
         print(f"shap path launches: {shap_launches}, wall {shap_wall:.2f} s",
               flush=True)
+        grid_launches, grid_rows, grid_modes, grid_members = \
+            run_shap_grid_path(tmp, tj)
+        lap("shap_grid_path")
+        for r in grid_rows:
+            check = r.get("local_accuracy_max_err",
+                          r.get("row_sum_vs_path_max_err"))
+            print(f"shap_grid {r['mode']} {r['config']} ({smi}): fit "
+                  f"{r['fit_s']:.3f} s, explain {r['explain_s']:.3f} s, peak "
+                  f"allocated {r['peak_allocated_gb']:.2f} GB, "
+                  f"{r['n_nodes_max']} nodes at most, check err "
+                  f"{check:.3g}", flush=True)
+        for mode, m in grid_modes.items():
+            print(f"shap_grid {mode}: wall {m['wall_s']:.2f} s for "
+                  f"{len(GRID_CONFIGS)} configs, launches {m['launches']}",
+                  flush=True)
+        print(f"shap_grid path launches: {grid_launches}", flush=True)
+        k2_grid = unit_report(grid_members)
+        lap("treeshap_unit_s64")
+        for name, c in k2_grid["per_config"].items():
+            print(f"treeshap_unit at S = {k2_grid['samples']} {name} "
+                  f"({smi}): {c['ms']:.4f} ms over {c['buckets']} buckets, "
+                  f"plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} "
+                  f"ms ({c['bound_share']:.1%})", flush=True)
+        print(f"treeshap_unit at S = {k2_grid['samples']}: "
+              f"{k2_grid['ms']:.4f} ms, plain {k2_grid['plain_ms']:.3f} ms, "
+              f"bound {k2_grid['bound_ms']:.4f} ms ({k2_grid['bound_by']}), "
+              f"max err {k2_grid['max_abs_err']:.3g}", flush=True)
+        explains = profile_explains(grid_members)
+        lap("shap_grid_profiles")
+        for e in explains:
+            top = e["top_kernels"][0]
+            print(f"explain profile {e['mode']} {e['config']} ({smi}): wall "
+                  f"{e['wall_s']:.3f} s, {e['kernel_launches']} launches, "
+                  f"busy {e['device_busy_ms']:.1f} ms, idle "
+                  f"{e['device_idle_share']:.1%}; top {top['name'][:60]} "
+                  f"{top['ms']:.1f} ms over {top['count']}", flush=True)
         by_name = {c["config"]: c for c in configs}
         prof = []
         for k in MAIN_CONFIGS + DT_CONFIGS[:1]:
@@ -1374,7 +1619,7 @@ def main():
 
     paths = {"scores": score_launches, "planner": planner_launches,
              "lopo": lopo_launches,
-             "shap": shap_launches,
+             "shap": shap_launches, "shap_grid": grid_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"]}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
@@ -1392,7 +1637,10 @@ def main():
               "hist_batched_steps": batched, "planner_profile": member_prof,
               "kill_drill": kill, "sticky_fault_drill": sticky,
               "oom_drill": oom, "lopo_path": lopo_cfgs,
-              "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs, "shap_path_wall_s": shap_wall,
+              "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs,
+              "shap_path_wall_s": shap_wall, "shap_grid_path": grid_rows,
+              "shap_grid_modes": grid_modes, "treeshap_unit_s64": k2_grid,
+              "shap_grid_explain_profiles": explains,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,
               "cuda": torch.version.cuda}

@@ -2,13 +2,17 @@
 for one NVIDIA H100, beside the JAX package ``flake16_framework_tpu``.
 
 It imports torch and numpy, never jax and nothing of the JAX package: it
-keeps its own copies of the grid, the loader, the fold masks and the
-synthetic dataset. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; the histogram step of the tree grower is a hand-written
-CUDA kernel (``csrc/hist_cumsum.cu``).
+keeps its own copies of what it needs of it (the grid, the loader, the
+fold masks, the planner, the figures, the synthetic dataset). Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``. Two hand-written
+CUDA kernels carry the device work: the histogram step of the tree grower
+(``csrc/hist_cumsum.cu``) and the path-dependent Tree SHAP unit
+(``csrc/treeshap_unit.cu``).
 
-This slice covers the ``scores`` verb for the Random Forest and Extra Trees
-configs (144 of the 216).
+The verbs (``__main__``): ``scores`` (all 216 configs; ``lopo``,
+``planner``, ``fused``, ``dispatch=N``), ``resume``, ``shap`` (the paper's
+two configs, or ``grid|interventional|interaction`` over the whole grid)
+and ``figures``.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,7 @@ TESTS_FILE = "tests.json"
 SCORES_FILE = "scores.pkl"
 LOPO_SCORES_FILE = "scores-lopo.pkl"
 SHAP_FILE = "shap.pkl"
+SUBJECTS_FILE = "subjects.txt"
 
 # Label encoding: 1 = order-dependent flaky, 2 = non-order-dependent flaky.
 NON_FLAKY, OD_FLAKY, FLAKY = 0, 1, 2

@@ -144,6 +144,18 @@ def _pad_to(shape, devices, perf_lookup):
     return devices
 
 
+def plan_explain_grid(configs, *, devices=1, n, n_folds, n_explain,
+                      tree_overrides=None):
+    """``plan_grid`` for the whole-grid SHAP pass (``pipeline.shap_grid``):
+    the same grouping and determinism, each plan's shape extended with
+    ``n_explain``, the rows each member explains."""
+    plans = plan_grid(configs, devices=devices, n=n, n_folds=n_folds,
+                      tree_overrides=tree_overrides)
+    return [Plan(p.family, p.configs, p.indices,
+                 p.shape + (int(n_explain),), pad_to=devices)
+            for p in plans]
+
+
 def plan_table(plans):
     """Rows for the pre-run padding report: family, member count, padded
     batch/shape, pad waste."""

@@ -4,7 +4,9 @@ scores, scores_total]}); the configs of an earlier run's ``scores.pkl``
 are skipped, and a write-ahead journal beside it resumes a killed sweep at
 fold granularity. ``shap``: Tree SHAP values of the two paper
 configs, written as ``shap.pkl`` (a list of two float32 [N, F] arrays in
-``config.SHAP_CONFIGS`` order)."""
+``config.SHAP_CONFIGS`` order). ``shap_grid``: the SHAP values of every
+config of the grid (or of a list), path-dependent, interventional or
+interaction values, of the first ``n_explain`` samples."""
 
 import json
 import os
@@ -25,11 +27,15 @@ from flake16_framework_tpu_torch.device import resolve
 from flake16_framework_tpu_torch.ops import trees, treeshap
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
+from flake16_framework_tpu_torch.parallel.planner import plan_explain_grid
 from flake16_framework_tpu_torch.parallel.sweep import SEED, SweepEngine
 from flake16_framework_tpu_torch.resilience import inject as rinject
 from flake16_framework_tpu_torch.resilience import journal as rjournal
 from flake16_framework_tpu_torch.resilience import quarantine as rquarantine
-from flake16_framework_tpu_torch.utils.synth import atomic_write_bytes
+from flake16_framework_tpu_torch.utils.atomic import atomic_write_bytes
+
+SHAP_MODES = ("path", "interventional", "interaction")
+
 
 def _load_ledger(out_file, warn_out=sys.stderr):
     """The pickle checkpoint as a resume source. A torn or corrupt pickle,
@@ -207,12 +213,12 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
 
 
 def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
-                    tree_overrides=None, device=None):
+                    tree_overrides=None, device=None, key=None):
     """The SHAP stage's fit (reference get_shap): preprocess the full
     matrix, balance it, fit the config's forest on the balanced set with
-    node capacity 4N. Keys as the JAX package's staged path:
-    ``split(PRNGKey(0))`` into the resampler's and the forest's.
-    Returns (xp [N, F'] the preprocessed samples, forest)."""
+    node capacity 4N. ``split(key)`` gives the resampler's key and the
+    forest's; ``key`` defaults to ``PRNGKey(0)``, the JAX package's staged
+    path. Returns (xp [N, F'] the preprocessed samples, forest)."""
     dev = resolve(device)
     fl, cols, prep, bal, spec = cfg.resolve_config(config_keys)
     if tree_overrides and spec.name in tree_overrides:
@@ -225,7 +231,8 @@ def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
     n = x.shape[0]
     mu, wmat = fit_preprocess(x, prep)
     xp = transform(x, mu, wmat)
-    kb, kf = rng.split(rng.prng_key(0, dev)).unbind(0)
+    key = rng.prng_key(0, dev) if key is None else key.to(dev)
+    kb, kf = rng.split(key).unbind(0)
     xs, ys, ws = resample(xp, y, torch.ones(n, dtype=torch.float32,
                                             device=dev), bal, kb, 2 * n)
     fit = trees.fit_forest_hist if trees.hist_tier_default(spec.n_trees) \
@@ -237,22 +244,40 @@ def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
     return xp, forest
 
 
-def shap_for_config(config_keys, feats, labels_raw, *, max_depth=48,
+def shap_for_config(config_keys, feats, labels_raw, *, mode="path",
+                    n_explain=None, n_background=0, key=None, max_depth=48,
                     tree_overrides=None, device=None):
-    """One SHAP config: fit (``fit_shap_forest``), then explain every
-    original sample. Returns {"values": class-0 SHAP values [N, F'] f32
-    numpy, "forest", "x": the explained samples, "fit_s", "explain_s":
-    the two stages' walls in seconds}."""
+    """One SHAP config: fit (``fit_shap_forest`` with ``key``), then
+    explain the first ``n_explain`` preprocessed samples (all by default)
+    by ``mode``: "path" (path-dependent Tree SHAP on the unit kernel,
+    [S, F']), "interventional" (against the first ``n_background``
+    preprocessed samples, [S, F']) or "interaction" ([S, F', F']).
+    Returns {"values": f32 numpy, "forest", "x": the preprocessed samples
+    [N, F'], "fit_s", "explain_s": the two stages' walls in seconds}."""
+    if mode not in SHAP_MODES:
+        raise ValueError(f"mode must be path|interventional|interaction, "
+                         f"got {mode!r}")
+    if mode == "interventional" and not n_background:
+        raise ValueError("interventional mode needs n_background > 0")
     dev = resolve(device)
     t0 = time.time()
     xp, forest = fit_shap_forest(config_keys, feats, labels_raw,
                                  max_depth=max_depth,
-                                 tree_overrides=tree_overrides, device=dev)
+                                 tree_overrides=tree_overrides, device=dev,
+                                 key=key)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     fit_s = time.time() - t0
     t0 = time.time()
-    values = treeshap.forest_shap_class0(forest, xp).cpu().numpy()
+    xe = xp[:n_explain]
+    if mode == "interventional":
+        values = treeshap.forest_shap_interventional(forest, xe,
+                                                     xp[:n_background])
+    elif mode == "interaction":
+        values = treeshap.forest_shap_interactions(forest, xe)
+    else:
+        values = treeshap.forest_shap_class0(forest, xe)
+    values = values.cpu().numpy()
     return {"values": values, "forest": forest, "x": xp, "fit_s": fit_s,
             "explain_s": time.time() - t0}
 
@@ -270,3 +295,57 @@ def write_shap(tests_file=TESTS_FILE, out_file=SHAP_FILE, *, max_depth=48,
                for keys in cfg.SHAP_CONFIGS]
     _dump([r["values"] for r in results], out_file)
     return results
+
+
+def shap_grid(tests_file=TESTS_FILE, out_file=None, *, mode="path",
+              n_explain=64, n_background=32, max_depth=48,
+              tree_overrides=None, seed=0, configs=None, arrays=None,
+              device=None, progress_out=sys.stdout):
+    """SHAP values of every config of the grid (or of ``configs``), as
+    the JAX package's ``shap_grid`` computes them: the configs grouped
+    into family plans (``plan_explain_grid``), and each member run in
+    turn through ``shap_for_config`` with the key ``fold_in(PRNGKey(seed),
+    canonical grid index)``, explaining its first ``n_explain``
+    preprocessed samples by ``mode`` (path|interventional|interaction;
+    interventional against the first ``n_background``); both counts are
+    clipped to N. ``arrays`` = (feats, labels_raw) stands in for the tests
+    file. Runs on ``cuda`` unless ``device`` says otherwise.
+
+    Returns {config keys joined by "/": f32 values} in plan order; with
+    ``out_file`` it pickles {"mode", "n_explain", "n_background" (0 unless
+    interventional), "values"}. Writes one line a member to
+    ``progress_out``: its keys and its fit and explain walls."""
+    device = resolve(device)
+    if arrays is not None:
+        feats, labels = arrays[0], arrays[1]
+    else:
+        feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
+    n = feats.shape[0]
+    n_explain = min(int(n_explain), n)
+    n_background = min(int(n_background), n)
+    config_list = [tuple(k) for k in (configs or cfg.iter_config_keys())]
+    plans = plan_explain_grid(
+        config_list, n=n, n_folds=0, n_explain=n_explain,
+        tree_overrides=tree_overrides)
+    total = sum(len(p.configs) for p in plans)
+    base = rng.prng_key(seed, device)
+    values = {}
+    t0 = time.time()
+    for plan in plans:
+        for keys, index in zip(plan.configs, plan.indices):
+            res = shap_for_config(
+                keys, feats, labels, mode=mode, n_explain=n_explain,
+                n_background=n_background, key=rng.fold_in(base, index),
+                max_depth=max_depth, tree_overrides=tree_overrides,
+                device=device)
+            values["/".join(keys)] = res["values"]
+            progress_out.write(
+                f"[{len(values)}/{total}] {', '.join(keys)} "
+                f"(fit {res['fit_s']:.3f} s, explain "
+                f"{res['explain_s']:.3f} s; {time.time() - t0:.1f}s "
+                f"elapsed)\n")
+    if out_file is not None:
+        _dump({"mode": mode, "n_explain": n_explain,
+               "n_background": n_background if mode == "interventional"
+               else 0, "values": values}, out_file)
+    return values

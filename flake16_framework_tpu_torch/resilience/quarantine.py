@@ -20,7 +20,7 @@ being mistaken for a clean run.
 import json
 import os
 
-from flake16_framework_tpu_torch.utils.synth import atomic_write_bytes
+from flake16_framework_tpu_torch.utils.atomic import atomic_write_bytes
 
 SIDECAR_SCHEMA = "flake16-quarantine-v1"
 # "The sweep finished but quarantined configs remain" is its own,

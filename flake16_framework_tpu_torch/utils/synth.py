@@ -6,12 +6,11 @@ Schema: ``{proj: {nid: [req_runs, label, *16 features]}}``.
 """
 
 import json
-import os
-import tempfile
 
 import numpy as np
 
 from flake16_framework_tpu_torch.constants import NON_FLAKY, OD_FLAKY, FLAKY
+from flake16_framework_tpu_torch.utils.atomic import atomic_write_bytes
 
 
 def make_dataset(n_tests=2000, n_projects=26, nod_frac=0.06, od_frac=0.04,
@@ -67,19 +66,3 @@ def make_tests_json(path=None, n_tests=2000, n_projects=26, seed=0):
         atomic_write_bytes(path, json.dumps(tests, indent=4).encode())
 
     return tests
-
-
-def atomic_write_bytes(path, data):
-    """Write ``data`` to ``path`` durably: temp file, fsync, rename."""
-    d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise

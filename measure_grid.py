@@ -31,6 +31,16 @@ and DT configs below) in this checkout and in DIR, each in a process of
 its own, and reports the names whose counts differ. Output:
 ``chiprun_out/launches.json``.
 
+``--shap grid|interventional|interaction`` (may be given more than once)
+instead times the whole grid's SHAP values of that mode through the CLI
+(``python -m flake16_framework_tpu_torch shap <mode>``, ``explain=64``,
+``background=32``), in a directory of its own after the kernels are
+built, and checks ``shap-<mode>.pkl`` (216 configs, f32, shapes, finite
+values, symmetric interaction matrices). The command's wall and the
+members' fit and explain walls summed by model go to
+``chiprun_out/measure_shap_grid.json``, each run's output to
+``chiprun_out/measure_shap_<mode>.log``.
+
 ``--check-profiler`` profiles one run of each of ``--config`` (or of the
 RF, ET and DT configs that ``chip_smoke.py`` profiles) and holds
 ``chip_smoke.py``'s reading of the profiler's raw device events against
@@ -50,6 +60,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 N_TESTS, N_PROJECTS, N_FOLDS = 4000, 26, 10
@@ -247,6 +258,9 @@ def main():
                     help="time `scores planner` and `scores` in turns")
     ap.add_argument("--pairs", type=int, default=2,
                     help="with --planner: runs of each mode")
+    ap.add_argument("--shap", action="append", default=[],
+                    choices=("grid", "interventional", "interaction"),
+                    help="time the whole grid's SHAP values of this mode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("measure_grid: no CUDA device", file=sys.stderr)
@@ -279,6 +293,14 @@ def main():
             return 1
     if args.check_profiler or args.against:
         return 0
+    if args.shap:
+        from flake16_framework_tpu_torch.kernels import build
+
+        build.build("hist_cumsum", "treeshap_unit")    # outside the walls
+        runs = [shap_grid_run(word) for word in args.shap]
+        _write_report("measure_shap_grid.json", {"nvidia_smi": smi,
+                                                 "runs": runs})
+        return 0 if all(runs) else 1
     if not args.planner:
         report = grid_run(["scores"], "measure_grid.log")
         if report is None:
@@ -317,6 +339,68 @@ def main():
               "must agree)", file=sys.stderr)
         return 1
     return 0
+
+
+_MEMBER_LINE = re.compile(r"^\[\d+/\d+\] (.+) \(fit ([0-9.]+) s, explain "
+                          r"([0-9.]+) s;", re.M)
+
+
+def shap_grid_run(word):
+    """``shap <word>`` over the whole grid through the CLI, in a directory
+    of its own; returns its report, or None if it failed."""
+    from flake16_framework_tpu_torch import config as cfg
+
+    log_path = os.path.join(REPO, "chiprun_out", f"measure_shap_{word}.log")
+    with tempfile.TemporaryDirectory() as tmp:
+        _make_tests(tmp)
+        env = dict(os.environ, PYTHONPATH=REPO)
+        with open(log_path, "w") as log:
+            t0 = time.time()
+            rc = subprocess.run(
+                [sys.executable, "-m", "flake16_framework_tpu_torch",
+                 "shap", word], cwd=tmp, env=env, stdout=log,
+                stderr=subprocess.STDOUT, timeout=3000).returncode
+            wall = time.time() - t0
+        if rc != 0:
+            print(f"measure_grid: shap {word} exited {rc}; see {log_path}",
+                  file=sys.stderr)
+            return None
+        with open(os.path.join(tmp, f"shap-{word}.pkl"), "rb") as fd:
+            payload = pickle.load(fd)
+    values = payload["values"]
+    grid = ["/".join(k) for k in cfg.iter_config_keys()]
+    if sorted(values) != sorted(grid):
+        raise AssertionError(f"shap-{word}.pkl holds {len(values)} "
+                             f"configs, not the grid's {len(grid)}")
+    for name, v in values.items():
+        f = len(cfg.FEATURE_SETS[name.split("/")[1]])
+        shape = (64, f, f) if word == "interaction" else (64, f)
+        if v.dtype != np.float32 or v.shape != shape \
+                or not np.isfinite(v).all():
+            raise AssertionError(f"{name}: {v.dtype} {v.shape}")
+        if word == "interaction" and not np.array_equal(
+                v, v.transpose(0, 2, 1)):
+            raise AssertionError(f"{name}: not symmetric")
+    with open(log_path) as fd:
+        members = _MEMBER_LINE.findall(fd.read())
+    if len(members) != len(grid):
+        raise AssertionError(f"{len(members)} member lines in {log_path}")
+    by_model = {}
+    for keys, fit_s, explain_s in members:
+        m = by_model.setdefault(keys.split(", ")[4], {
+            "configs": 0, "fit_s": 0.0, "explain_s": 0.0,
+            "max_explain_s": 0.0})
+        m["configs"] += 1
+        m["fit_s"] += float(fit_s)
+        m["explain_s"] += float(explain_s)
+        m["max_explain_s"] = max(m["max_explain_s"], float(explain_s))
+    return {"command": f"shap {word}", "mode": payload["mode"],
+            "device": torch.cuda.get_device_name(0),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "configs": len(values), "wall_s": wall,
+            "member_sum_s": sum(m["fit_s"] + m["explain_s"]
+                                for m in by_model.values()),
+            "by_model": by_model}
 
 
 def grid_run(argv, log_name):

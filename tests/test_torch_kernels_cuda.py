@@ -187,6 +187,12 @@ def _bucket(r, cap, n_feat, seed, mode=None, s=0):
     (16, 16, 512, 200, "all_o0"),
     (16, 16, 512, 200, "all_o1"),
     (16, 16, 512, 200, "on_edges"),
+    # the grid's explain width (S = 64, half a tile) and one sample
+    (16, 16, 20000, 64, "sorted"),
+    (7, 7, 3000, 64, "sorted"),
+    (4, 16, 600, 64, None),
+    (16, 16, 5000, 1, "sorted"),
+    (2, 7, 50, 1, None),
 ])
 def test_treeshap_unit_vs_plain(cap, n_feat, r, s, mode):
     if not torch.cuda.is_available():
@@ -376,3 +382,44 @@ def test_fused_config_equals_run_config(tmp_path, keys):
     fused = SweepEngine(*arrays, fused=True).run_config(keys)
     assert pickle.dumps(fused[2:]) == pickle.dumps(plain[2:])
     assert (hist.cum_hists.launches > before) == (keys[4] != "Decision Tree")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["path", "interventional", "interaction"])
+def test_shap_grid_card_equals_cpu(tmp_path, mode):
+    """``shap_grid`` on the card against the CPU at a small size (N = 400,
+    8 trees, depth 12): the same forests (bitwise on both growers), so
+    values within 1e-5 * max|CPU| + 1e-7; interaction matrices exactly
+    symmetric; K1 launched by the ensembles' fits, K2 by the path mode.
+    No config scales its features: the card's and the CPU's column means
+    may differ by an ulp, and so may forests grown on them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import io
+
+    from flake16_framework_tpu_torch.pipeline import shap_grid
+    from flake16_framework_tpu_torch.utils.synth import make_dataset
+
+    feats, labels, _ = make_dataset(n_tests=400, n_projects=6, seed=5)
+    kw = dict(mode=mode, n_explain=64, n_background=32, max_depth=12,
+              arrays=(feats, labels), progress_out=io.StringIO(),
+              tree_overrides={"Random Forest": 8, "Extra Trees": 8},
+              configs=[("NOD", "Flake16", "None", "SMOTE",
+                        "Random Forest"),
+                       ("OD", "FlakeFlagger", "None", "Tomek Links",
+                        "Extra Trees"),
+                       ("NOD", "Flake16", "None", "ENN", "Decision Tree")])
+    cpu = shap_grid(device="cpu", **kw)
+    k1, k2 = hist.cum_hists.launches, treeshap_unit.unit_shap.launches
+    gpu = shap_grid(**kw)
+    assert hist.cum_hists.launches > k1
+    assert (treeshap_unit.unit_shap.launches > k2) == (mode == "path")
+    assert list(gpu) == list(cpu)
+    for name, c in cpu.items():
+        g = gpu[name]
+        assert g.dtype == np.float32 and g.shape == c.shape
+        assert np.isfinite(g).all()
+        err = float(np.abs(g - c).max())
+        assert err <= 1e-5 * float(np.abs(c).max()) + 1e-7, (name, err)
+        if mode == "interaction":
+            assert np.array_equal(g, g.transpose(0, 2, 1))

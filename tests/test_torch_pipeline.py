@@ -116,9 +116,9 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="No command"):
         tmain.main([])
     with pytest.raises(ValueError, match="Unrecognized command"):
-        tmain.main(["figures"])
+        tmain.main(["report"])
     with pytest.raises(ValueError, match="Unrecognized shap option"):
-        tmain.main(["shap", "grid"])
+        tmain.main(["shap", "gird"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
         tmain.main(["scores", "profile=trace"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
