@@ -31,6 +31,16 @@ as ``deterministic``, exit 23, then a resume in a fresh process that
 completes every config), and a real out-of-memory error retried once as
 ``oom`` before K1 runs bitwise.
 
+The ``serve`` phase registers the grid phase's three models (ET and RF fit
+through K1, a Decision Tree; seed 0) in the in-process scoring service,
+warms it at buckets (8, 32, 128) and drives 1024 requests of 16 rows from
+8 clients, predict and SHAP in turn (SHAP on K2 through the single-bucket
+rows, one launch a microbatch); it holds each model, kind and bucket
+against the direct call, K2 on the ET model's serving rows against its
+plain version, times K2 at S = 8, 32 and 128, and runs the drain drill: the
+``serve --hold`` verb in a child process, SIGTERM, its drain accounting,
+and the flushed warm manifest against a reload in this process.
+
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
@@ -481,12 +491,12 @@ def check_unit_kernel(tests_file):
     verb's shapes (``unit_report``)."""
     from flake16_framework_tpu_torch.config import SHAP_CONFIGS
     from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
-    from flake16_framework_tpu_torch.pipeline import fit_shap_forest
+    from flake16_framework_tpu_torch.pipeline import fit_shap_model
 
     feats, labels, _, _, _ = tests_to_arrays(load_tests(tests_file))
     members = []
     for keys in SHAP_CONFIGS:
-        xp, forest = fit_shap_forest(keys, feats, labels)
+        xp, _, _, forest = fit_shap_model(keys, feats, labels)
         members.append((keys, forest, xp))
     return unit_report(members)
 
@@ -1072,6 +1082,303 @@ def profile_explains(members):
     return out
 
 
+# The serve phase: the grid phase's three models (ET and RF fit through
+# K1, a Decision Tree), seed 0, behind one service at the default buckets,
+# under a closed-loop load of 1024 requests of 16 rows from 8 clients.
+SERVE_BUCKETS = (8, 32, 128)
+SERVE_REQUESTS, SERVE_ROWS, SERVE_CLIENTS = 1024, 16, 8
+
+
+class _KindClock:
+    """The service as ``sustained_load`` drives it, with each request's
+    wall on the client's side kept by kind, and the store's dispatches
+    counted by kind."""
+
+    def __init__(self, svc):
+        import threading
+
+        self.svc = svc
+        self.latency = svc.latency
+        self.ms = {"predict": [], "shap": []}
+        self.dispatches = {"predict": 0, "shap": 0}
+        self._lock = threading.Lock()
+        real = svc.store.call
+
+        def counted(model, kind, x):
+            with self._lock:
+                self.dispatches[kind] += 1
+            return real(model, kind, x)
+
+        svc.store.call = counted
+
+    def stats(self):
+        return self.svc.stats()
+
+    def score(self, model_id, x, kind="predict", timeout=None):
+        t0 = time.perf_counter()
+        out = self.svc.score(model_id, x, kind=kind, timeout=timeout)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.ms[kind].append(ms)
+        return out
+
+    def by_kind(self, wall_s):
+        out = {}
+        for kind, ms in self.ms.items():
+            ms = sorted(ms)
+            pct = (lambda p: ms[min(len(ms) - 1, round(p * (len(ms) - 1)))])
+            out[kind] = {"requests": len(ms), "rps": len(ms) / wall_s,
+                         "p50_ms": pct(0.50), "p99_ms": pct(0.99),
+                         "dispatches": self.dispatches[kind]}
+        return out
+
+
+def run_serve_path(tmp, tj):
+    """The ``serve`` verb's in-process service at full width: registers
+    ``GRID_CONFIGS`` (seed 0, depth 48, 100 trees), warms it at
+    ``SERVE_BUCKETS`` and drives ``sustained_load`` (1024 requests of 16
+    rows, 8 clients, predict and SHAP in turn), with the kernels' launch
+    counts set to 0 just before the registration and read just after the
+    load: K1 from the ET and RF fits, K2 once a SHAP microbatch (and once
+    a model and bucket at warm). Returns (launches, report, the service
+    still running, the registry, the data)."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.serve import ModelRegistry, ScoringService
+    from flake16_framework_tpu_torch.serve.cli import sustained_load
+
+    feats, labels, _, _, _ = tests_to_arrays(load_tests(tj))
+    registry = ModelRegistry(os.path.join(tmp, "serve-registry"))
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for keys in GRID_CONFIGS:
+        registry.fit_and_register(keys, feats, labels, max_depth=48, seed=0)
+    torch.cuda.synchronize()
+    register_s = time.time() - t0
+    registered = _read_counts()
+    peak_register = torch.cuda.max_memory_allocated() / 1e9
+    svc = ScoringService(registry, buckets=SERVE_BUCKETS)
+    t0 = time.time()
+    svc.start()
+    warm_s = time.time() - t0
+    warmed = _read_counts()
+    clock = _KindClock(svc)
+    torch.cuda.reset_peak_memory_stats()
+    load = sustained_load(clock, feats, registry.ids(),
+                          n_requests=SERVE_REQUESTS, rows=SERVE_ROWS,
+                          kinds=("predict", "shap"), clients=SERVE_CLIENTS)
+    launches = _read_counts()
+    peak_load = torch.cuda.max_memory_allocated() / 1e9
+    _require(load["n_errors"] == 0, f"serve load errors: {load['errors']}")
+    _require(load["requests"] == SERVE_REQUESTS
+             and load["completed"] == SERVE_REQUESTS,
+             f"serve load completed {load['completed']} of "
+             f"{load['requests']}")
+    kinds = clock.by_kind(load["wall_s"])
+    load_k2 = launches["treeshap_unit"] - warmed["treeshap_unit"]
+    _require(registered["hist_cumsum"] > 0 and load_k2 > 0,
+             f"serve path launches {launches}")
+    _require(load_k2 == kinds["shap"]["dispatches"],
+             f"K2 launched {load_k2} times for "
+             f"{kinds['shap']['dispatches']} SHAP microbatches")
+    _require(warmed["treeshap_unit"] == len(GRID_CONFIGS) * len(SERVE_BUCKETS),
+             f"warm launches {warmed}")
+    report = {
+        "register_s": register_s, "warm_s": warm_s,
+        "register_launches": registered, "warm_launches": warmed,
+        "load_launches": {k: launches[k] - warmed[k] for k in launches},
+        "peak_allocated_gb_register": peak_register,
+        "peak_allocated_gb_load": peak_load,
+        "load": load, "by_kind": kinds,
+        "models": {m.model_id: {"n_nodes_max": int(m.forest.n_nodes.max()),
+                                "node_slots": m.forest.feature.shape[1],
+                                "trees": m.forest.feature.shape[0]}
+                   for m in registry.models()},
+    }
+    return launches, report, svc, registry, feats
+
+
+def check_served_values(svc, registry, feats):
+    """Each model, kind and bucket size: the served result against the
+    direct call on the same rows — predict (``trees.predict_proba`` on
+    the transformed rows) within 1e-6 absolute, SHAP against the packed
+    engine (``forest_shap_class0``) within SHAP_TOL, and the served SHAP
+    values' local accuracy within LOCAL_ACCURACY_TOL."""
+    from flake16_framework_tpu_torch.ops.preprocess import transform
+    from flake16_framework_tpu_torch.ops.trees import predict_proba
+    from flake16_framework_tpu_torch.ops.treeshap import (
+        expected_p0, forest_shap_class0,
+    )
+
+    rows = []
+    for model in registry.models():
+        for bucket in SERVE_BUCKETS:
+            x = feats[:bucket]
+            xp = transform(torch.from_numpy(np.ascontiguousarray(
+                x[:, list(model.cols)], dtype=np.float32)).cuda(),
+                model.mu, model.wmat)
+            pred = svc.score(model.model_id, x, kind="predict", timeout=120)
+            phi = svc.score(model.model_id, x, kind="shap", timeout=120)
+            p = predict_proba(model.forest, xp)
+            pred_err = float(np.abs(pred - p.cpu().numpy()).max())
+            _require(pred_err <= 1e-6, f"{model.model_id}@{bucket}: served "
+                     f"predict off by {pred_err}")
+            want = forest_shap_class0(model.forest, xp).cpu().numpy()
+            shap_err = float(np.abs(phi - want).max())
+            ref = float(np.abs(want).max())
+            _require(shap_err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+                     f"{model.model_id}@{bucket}: served SHAP off the "
+                     f"packed engine by {shap_err} (max {ref})")
+            gap = (p[:, 0] - expected_p0(model.forest)).cpu().numpy()
+            acc_err = float(np.abs(phi.astype(np.float64).sum(1)
+                                   - gap).max())
+            _require(acc_err <= LOCAL_ACCURACY_TOL,
+                     f"{model.model_id}@{bucket}: local accuracy off by "
+                     f"{acc_err}")
+            rows.append({"model": model.model_id, "bucket": bucket,
+                         "predict_max_abs_err": pred_err,
+                         "shap_max_abs_err": shap_err, "max_abs_phi": ref,
+                         "local_accuracy_max_err": acc_err})
+    return rows
+
+
+def serve_unit_report(registry, feats):
+    """K2 on the single-bucket rows (``graph_inputs``) of the ET and RF
+    models at the serving buckets' sample counts: at S = 128 on the ET
+    rows against ``unit_shap_plain`` (SHAP_TOL; two kernel runs bitwise),
+    and its ms at S = 8, 32 and 128 on both (``_cuda_ms``) against the
+    operation bound of these inputs (``unit_ops`` over the live rows) and
+    their bytes."""
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+        unit_shap, unit_shap_plain,
+    )
+    from flake16_framework_tpu_torch.ops.preprocess import transform
+    from flake16_framework_tpu_torch.ops.treeshap import graph_inputs
+    from flake16_framework_tpu_torch.serve import model_id_for
+
+    out = {"check": None, "timings": []}
+    for keys in GRID_CONFIGS[:2]:
+        model = registry.get(model_id_for(keys))
+        rows = graph_inputs(model.forest, len(model.cols))
+        xp = transform(torch.from_numpy(np.ascontiguousarray(
+            feats[:max(SERVE_BUCKETS), list(model.cols)],
+            dtype=np.float32)).cuda(), model.mu, model.wmat)
+        u = rows[4]
+        live = u > 0
+        if keys == GRID_CONFIGS[0]:
+            x = xp.contiguous()
+            got, again = unit_shap(*rows, x), unit_shap(*rows, x)
+            want = unit_shap_plain(*rows, x)
+            torch.cuda.synchronize()
+            _require(torch.equal(got, again), "K2 serving rows: two runs "
+                     "differ")
+            err = float((got - want).abs().max())
+            ref = float(want.abs().max())
+            _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+                     f"K2 on the ET serving rows differs from "
+                     f"unit_shap_plain: {err} (max {ref})")
+            out["check"] = {"config": "/".join(keys), "samples": x.shape[0],
+                            "rows": u.shape[0], "max_abs_err": err,
+                            "max_abs_plain": ref}
+        for s in SERVE_BUCKETS:
+            x = xp[:s].contiguous()
+            live_rows = tuple(t[live] for t in rows)
+            ops = unit_ops(u[live], one_counts(*live_rows, x), s)
+            ms = _cuda_ms(lambda: unit_shap(*rows, x), reps=20, warm=2)
+            nbytes = sum(t.numel() * 4 for t in rows) + 2 * x.numel() * 4
+            bound_ops = ops / F32_OPS_PER_S * 1e3
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            out["timings"].append({
+                "config": "/".join(keys), "samples": s,
+                "rows": u.shape[0], "live_rows": int(live.sum()),
+                "mean_live_u": float(u[live].double().mean()),
+                "ms": ms,
+                "plain_ms": _cuda_ms(lambda: unit_shap_plain(*rows, x),
+                                     reps=1, warm=0),
+                "bound_ms": max(bound_ops, bound_bytes),
+                "bound_by": "operations" if bound_ops >= bound_bytes
+                else "bytes",
+                "bound_share": max(bound_ops, bound_bytes) / ms})
+    return out
+
+
+# The drain drill's child: the ``serve`` verb held under its own load
+# until SIGTERM, at full width, persisting its registry.
+_DRAIN_ARGS = ["serve", "--hold", "--synth", str(N_TESTS), "--trees", "100",
+               "--max-depth", "48", "--kinds", "predict,shap"]
+
+
+def run_drain_drill(tmp):
+    """``python -m flake16_framework_tpu_torch serve --hold ...`` as a
+    child process: wait for SERVE_READY, let it serve a second, SIGTERM
+    it and parse its DRAIN_ACCT line, which must show exit 0, phase
+    ``complete`` and no failed and no rejected request. Then the parent
+    reloads the child's registry: the flushed ``aot_manifest.json`` must
+    equal the reloaded store's ``warm_manifest`` (the reload-warm
+    contract)."""
+    import signal
+    import threading
+
+    from flake16_framework_tpu_torch.serve import ExecutableStore, ModelRegistry
+    from flake16_framework_tpu_torch.serve.store import MANIFEST_FILE
+
+    reg_dir = os.path.join(tmp, "drill-registry")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("F16_FAULT_INJECT", None)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flake16_framework_tpu_torch", *_DRAIN_ARGS,
+         "--registry", reg_dir], cwd=tmp, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+
+    def reader():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.strip() == "SERVE_READY":
+                ready.set()
+
+    thread = threading.Thread(target=reader, daemon=True)
+    thread.start()
+    try:
+        _require(ready.wait(300), "drain drill: no SERVE_READY; output:\n"
+                 + "".join(lines[-40:]))
+        ready_s = time.time() - t0
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    thread.join(10)
+    acct = [json.loads(line.split(" ", 1)[1]) for line in lines
+            if line.startswith("DRAIN_ACCT ")]
+    _require(len(acct) == 1, "drain drill: no DRAIN_ACCT line; output:\n"
+             + "".join(lines[-40:]))
+    acct = acct[0]
+    _require(rc == 0 and acct["drain"]["phase"] == "complete"
+             and acct["counts"]["failed"] == 0
+             and acct["counts"]["rejected"] == 0
+             and acct["counts"]["ok"] > 0,
+             f"drain drill: exit {rc}, {json.dumps(acct)}")
+    reloaded = ModelRegistry(reg_dir)
+    _require(len(reloaded.load()) == len(acct["models"]),
+             "drain drill: the reload lost models")
+    with open(os.path.join(reg_dir, MANIFEST_FILE)) as fd:
+        manifest = json.load(fd)
+    rebuilt = ExecutableStore(reloaded).warm_manifest(
+        reloaded.models(), manifest["buckets"])
+    _require(manifest["backend"] == "cuda" and rebuilt == manifest["models"],
+             "drain drill: the flushed manifest differs from the reloaded "
+             "store's")
+    return {"rc": rc, "ready_s": ready_s, "wall_s": time.time() - t0,
+            "drain": acct["drain"], "counts": acct["counts"],
+            "models": acct["models"], "manifest_buckets": manifest["buckets"],
+            "manifest_equal_after_reload": True}
+
+
 # The crash-tolerance drills run ``write_scores`` in child processes on
 # the three configs below: an RF and an ET config on K1, a Decision Tree
 # on the exact grower; all three are in the scores path, whose results are
@@ -1586,6 +1893,59 @@ def main():
                   f"busy {e['device_busy_ms']:.1f} ms, idle "
                   f"{e['device_idle_share']:.1%}; top {top['name'][:60]} "
                   f"{top['ms']:.1f} ms over {top['count']}", flush=True)
+        serve_launches, serve, svc, serve_reg, serve_feats = \
+            run_serve_path(tmp, tj)
+        try:
+            lap("serve_path")
+            serve["values"] = check_served_values(svc, serve_reg,
+                                                  serve_feats)
+            serve["treeshap_unit"] = serve_unit_report(serve_reg,
+                                                       serve_feats)
+            lap("serve_checks")
+        finally:
+            svc.stop()
+        serve["drain_drill"] = run_drain_drill(tmp)
+        lap("serve_drain_drill")
+        load = serve["load"]
+        print(f"serve path ({smi}): registered {len(GRID_CONFIGS)} models "
+              f"in {serve['register_s']:.2f} s (K1 "
+              f"{serve['register_launches']['hist_cumsum']} launches, peak "
+              f"allocated {serve['peak_allocated_gb_register']:.2f} GB), "
+              f"warm {serve['warm_s']:.3f} s (K2 "
+              f"{serve['warm_launches']['treeshap_unit']} launches); load "
+              f"{load['requests']} requests of {load['rows']} rows from "
+              f"{load['clients']} clients in {load['wall_s']:.3f} s, "
+              f"{load['rps']} rps, p50 {load['p50_ms']} ms, p99 "
+              f"{load['p99_ms']} ms, n_errors {load['n_errors']}, peak "
+              f"allocated {serve['peak_allocated_gb_load']:.3f} GB; "
+              f"launches {serve_launches}", flush=True)
+        for kind, k in serve["by_kind"].items():
+            print(f"serve {kind} ({smi}): {k['requests']} requests, "
+                  f"{k['rps']:.1f} rps, p50 {k['p50_ms']:.3f} ms, p99 "
+                  f"{k['p99_ms']:.3f} ms (client side), {k['dispatches']} "
+                  f"microbatches", flush=True)
+        worst = {k: max(r[k] for r in serve["values"]) for k in (
+            "predict_max_abs_err", "shap_max_abs_err",
+            "local_accuracy_max_err")}
+        print(f"serve values: each model, kind and bucket against the direct "
+              f"call: {json.dumps(worst)}", flush=True)
+        chk = serve["treeshap_unit"]["check"]
+        print(f"treeshap_unit serving rows {chk['config']}: {chk['rows']} "
+              f"rows x {chk['samples']} samples, err {chk['max_abs_err']:.3g} "
+              f"(max {chk['max_abs_plain']:.3g}) against unit_shap_plain",
+              flush=True)
+        for t in serve["treeshap_unit"]["timings"]:
+            print(f"treeshap_unit serving {t['config']} S = {t['samples']} "
+                  f"({smi}): {t['ms']:.4f} ms over {t['rows']} rows "
+                  f"({t['live_rows']} live, mean u {t['mean_live_u']:.2f}), "
+                  f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} "
+                  f"ms ({t['bound_by']}, {t['bound_share']:.1%})",
+                  flush=True)
+        d = serve["drain_drill"]
+        print(f"drain drill ({smi}): child exit {d['rc']}, ready after "
+              f"{d['ready_s']:.1f} s, drain {json.dumps(d['drain'])}, "
+              f"requests {json.dumps(d['counts'])}; manifest == reloaded "
+              f"store's warm_manifest", flush=True)
         by_name = {c["config"]: c for c in configs}
         prof = []
         for k in MAIN_CONFIGS + DT_CONFIGS[:1]:
@@ -1620,6 +1980,7 @@ def main():
     paths = {"scores": score_launches, "planner": planner_launches,
              "lopo": lopo_launches,
              "shap": shap_launches, "shap_grid": grid_launches,
+             "serve": serve_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"]}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
@@ -1640,7 +2001,7 @@ def main():
               "lopo_path_wall_s": lopo_wall, "shap_path": shap_cfgs,
               "shap_path_wall_s": shap_wall, "shap_grid_path": grid_rows,
               "shap_grid_modes": grid_modes, "treeshap_unit_s64": k2_grid,
-              "shap_grid_explain_profiles": explains,
+              "shap_grid_explain_profiles": explains, "serve_path": serve,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,
               "cuda": torch.version.cuda}

@@ -11,8 +11,9 @@ CUDA kernels carry the device work: the histogram step of the tree grower
 
 The verbs (``__main__``): ``scores`` (all 216 configs; ``lopo``,
 ``planner``, ``fused``, ``dispatch=N``), ``resume``, ``shap`` (the paper's
-two configs, or ``grid|interventional|interaction`` over the whole grid)
-and ``figures``.
+two configs, or ``grid|interventional|interaction`` over the whole grid),
+``figures`` and ``serve`` (the scoring service in one process,
+``serve/``).
 """
 
 __version__ = "0.1.0"

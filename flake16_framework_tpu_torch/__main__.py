@@ -10,11 +10,12 @@ leave-one-project-out sweep into ``scores-lopo.pkl``, ``... resume
 of N samples) or interaction values of N samples for every config of the
 grid into ``shap-<mode>.pkl``, and ``... figures`` the paper's LaTeX
 tables and plots from ``tests.json``, ``scores.pkl`` and ``shap.pkl``
-(host code, no device). ``scores`` and ``resume`` also take ``planner``
-(the configs run as family plans), ``fused`` (each config's folds grown
-as one tree batch) and ``dispatch=N`` (at most N trees a fold grown as
-one batch), and exit with 23 when configs were quarantined
-(``scores.pkl.quarantine.json`` lists them)."""
+(host code, no device), and ``... serve [--flags]`` stands the scoring
+service up in one process (``serve/cli.py``). ``scores`` and ``resume``
+also take ``planner`` (the configs run as family plans), ``fused`` (each
+config's folds grown as one tree batch) and ``dispatch=N`` (at most N
+trees a fold grown as one batch), and exit with 23 when configs were
+quarantined (``scores.pkl.quarantine.json`` lists them)."""
 
 import os
 import sys
@@ -79,9 +80,17 @@ def main(argv=None):
     if not argv:
         raise ValueError("No command given")
     command, *args = argv
-    if command not in ("scores", "resume", "shap", "figures"):
+    if command not in ("scores", "resume", "shap", "figures", "serve"):
         raise ValueError(f"Unrecognized command {command!r} (this slice "
-                         f"of the port has: scores, resume, shap, figures)")
+                         f"of the port has: scores, resume, shap, figures, "
+                         f"serve)")
+    if command == "serve":
+        from flake16_framework_tpu_torch.serve.cli import serve_main
+
+        code = serve_main(args)
+        if code:
+            raise SystemExit(code)
+        return
     if command == "figures":
         for a in args:
             raise ValueError(f"Unrecognized figures option {a!r}")

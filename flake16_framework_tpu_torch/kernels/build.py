@@ -12,6 +12,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -21,6 +22,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded = {}
+
+# Held by each wrapper around the increment of its ``launches`` count,
+# which the scoring service's dispatcher threads reach concurrently.
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc():

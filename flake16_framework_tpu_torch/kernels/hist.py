@@ -129,7 +129,8 @@ def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
         torch.cuda.current_stream(rel.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_cumsum launch failed: CUDA error {err}")
-    cum_hists.launches += 1
+    with build.COUNT_LOCK:
+        cum_hists.launches += 1
     return cw, cwy
 
 

@@ -191,7 +191,8 @@ def unit_shap(fid, z, lo, hi, u, scale, x):
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"treeshap_unit launch failed: CUDA error {err}")
-    unit_shap.launches += 1
+    with build.COUNT_LOCK:
+        unit_shap.launches += 1
     return partial.sum(0)
 
 

@@ -23,6 +23,7 @@ from flake16_framework_tpu_torch.config import (
     BAL_NONE, BAL_TOMEK, BAL_SMOTE, BAL_ENN, BAL_SMOTE_ENN, BAL_SMOTE_TOMEK,
 )
 from flake16_framework_tpu_torch.ops.knn import masked_knn, nearest_one
+from flake16_framework_tpu_torch.ops.trees import _fma
 
 SMOTE_K = 5
 ENN_K = 3
@@ -93,7 +94,8 @@ def smote(x, y, w, key, cap):
     nbr = torch.where(ok[base, col], idx[base, col], base)
 
     steps = rng.uniform(ks, (n_slots, 1)).to(x.dtype)
-    x_new = x[base] + steps * (x[nbr] - x[base])
+    # One rounding, as XLA contracts the JAX package's x + s * d on the CPU.
+    x_new = _fma(steps, x[nbr] - x[base], x[base])
     slot_ok = torch.arange(n_slots, device=x.device) < n_synth
 
     x_out = torch.cat([x, torch.where(slot_ok[:, None], x_new,

@@ -9,7 +9,10 @@ a path is a row of u <= min(F, depth) live slots. The rows are packed by u
 into buckets of cap = the next power of two (``pack_work_items``), and each
 bucket is one launch of the unit (``kernels.treeshap_unit``), which runs
 EXTEND and UNWIND for every (path, sample) pair. ``forest_shap_class0``
-sums the buckets and divides by the tree count.
+sums the buckets and divides by the tree count. ``forest_shap_graph`` is
+the single-bucket engine the scoring service runs: every row at cap =
+min(F, depth), dead rows included, in one launch, with no host read, so
+its inputs (``graph_inputs``) are prepared once per served model.
 
 The same buckets feed two more explainers, in plain PyTorch as the JAX
 package's are XLA code: ``forest_shap_interventional`` (against a
@@ -199,6 +202,49 @@ def forest_shap_class0(forest, x):
     for _, args in bucket_inputs(forest, n_features):
         phi = phi + unit_shap(*args, x)
     return phi.T / forest.feature.shape[0]
+
+
+def graph_inputs(forest, n_features):
+    """The single-bucket work list (the JAX package's
+    ``_graph_forest_shap`` layout): every (tree, leaf slot) row of
+    ``compact_paths``, cut to cap = min(F, depth), as contiguous unit
+    inputs (fid, z, lo, hi, u, scale) on the forest's device. Rows that
+    are not ``valid`` get u = 0 and scale = 0, which the unit passes over.
+    No host read and no packing: the rows depend only on the forest's
+    shapes, so a served model prepares them once. They are sorted by u
+    (stable, on the device), so that each chunk of the kernel holds one u,
+    or a few."""
+    depth = int(forest.max_depth)
+    cap = int(min(n_features, depth))
+    comp = compact_paths(forest, depth, n_features)
+    u = torch.where(comp["valid"], comp["u"], 0)
+    scale = torch.where(comp["valid"], comp["scale"], 0.0)
+    order = torch.sort(u, stable=True).indices
+    return tuple(t[order].contiguous() for t in (
+        comp["fid"][:, :cap], comp["z"][:, :cap], comp["lo"][:, :cap],
+        comp["hi"][:, :cap], u, scale))
+
+
+def graph_shap(inputs, n_trees, x):
+    """phi [S, F] of the samples x [S, F] (contiguous f32) from
+    ``graph_inputs``' rows of a forest of ``n_trees`` trees: one unit
+    launch, then the mean over trees."""
+    return unit_shap(*inputs, x).T / n_trees
+
+
+def forest_shap_graph(forest, x, *, sample_chunk=None):
+    """phi [S, F]: ``forest_shap_class0``'s values on the single-bucket
+    work list (``graph_inputs``), one unit launch per ``sample_chunk``
+    samples (all at once by default), as the JAX package's
+    ``_xla_forest_shap`` and ``_pallas_graph_shap`` compute them. The
+    forest is explained as given (callers trim it)."""
+    inputs = graph_inputs(forest, x.shape[1])
+    n_trees = forest.feature.shape[0]
+    x = x.contiguous()
+    if sample_chunk is None or sample_chunk >= x.shape[0]:
+        return graph_shap(inputs, n_trees, x)
+    return torch.cat([graph_shap(inputs, n_trees, x[a:a + sample_chunk])
+                      for a in range(0, x.shape[0], sample_chunk)])
 
 
 def expected_p0(forest):

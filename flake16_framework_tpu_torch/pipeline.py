@@ -212,13 +212,15 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     return scores
 
 
-def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
-                    tree_overrides=None, device=None, key=None):
+def fit_shap_model(config_keys, feats, labels_raw, *, max_depth=48,
+                   tree_overrides=None, device=None, key=None):
     """The SHAP stage's fit (reference get_shap): preprocess the full
     matrix, balance it, fit the config's forest on the balanced set with
     node capacity 4N. ``split(key)`` gives the resampler's key and the
     forest's; ``key`` defaults to ``PRNGKey(0)``, the JAX package's staged
-    path. Returns (xp [N, F'] the preprocessed samples, forest)."""
+    path. Returns (xp [N, F'] the preprocessed samples, mu, W, forest),
+    with xp = transform(x, mu, W); the scoring service's registry keeps
+    mu and W."""
     dev = resolve(device)
     fl, cols, prep, bal, spec = cfg.resolve_config(config_keys)
     if tree_overrides and spec.name in tree_overrides:
@@ -241,13 +243,13 @@ def fit_shap_forest(config_keys, feats, labels_raw, *, max_depth=48,
                  bootstrap=spec.bootstrap, random_splits=spec.random_splits,
                  sqrt_features=spec.sqrt_features, max_depth=max_depth,
                  max_nodes=4 * n)
-    return xp, forest
+    return xp, mu, wmat, forest
 
 
 def shap_for_config(config_keys, feats, labels_raw, *, mode="path",
                     n_explain=None, n_background=0, key=None, max_depth=48,
                     tree_overrides=None, device=None):
-    """One SHAP config: fit (``fit_shap_forest`` with ``key``), then
+    """One SHAP config: fit (``fit_shap_model`` with ``key``), then
     explain the first ``n_explain`` preprocessed samples (all by default)
     by ``mode``: "path" (path-dependent Tree SHAP on the unit kernel,
     [S, F']), "interventional" (against the first ``n_background``
@@ -261,7 +263,7 @@ def shap_for_config(config_keys, feats, labels_raw, *, mode="path",
         raise ValueError("interventional mode needs n_background > 0")
     dev = resolve(device)
     t0 = time.time()
-    xp, forest = fit_shap_forest(config_keys, feats, labels_raw,
+    xp, _, _, forest = fit_shap_model(config_keys, feats, labels_raw,
                                  max_depth=max_depth,
                                  tree_overrides=tree_overrides, device=dev,
                                  key=key)

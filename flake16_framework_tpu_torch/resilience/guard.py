@@ -168,13 +168,18 @@ class DispatchGuard:
         # while it lives.
         box = {}
         torch = _cuda(self.device)
+        if torch is not None:
+            # A new thread starts on the current device, not on the
+            # caller's: the worker sets it by index (plain "cuda" is the
+            # caller's current device).
+            index = torch.device(self.device).index
+            if index is None:
+                index = torch.cuda.current_device()
 
         def work():
             try:
                 if torch is not None:
-                    # A new thread starts on the current device, not on
-                    # the caller's: set it explicitly.
-                    torch.cuda.set_device(self.device)
+                    torch.cuda.set_device(index)
                 box["out"] = self._finish(thunk())
             except BaseException as e:  # must cross the thread boundary
                 box["exc"] = e

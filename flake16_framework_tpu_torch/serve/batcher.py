@@ -1,0 +1,189 @@
+"""Shape-bucketed microbatcher: the serving layer's dispatch engine.
+
+One collector thread drains the request queue (coalescing FIFO
+same-(model, kind) requests), pads each coalesced batch to the smallest
+registered bucket shape, and hands it to a bounded pool of dispatcher
+threads through a ``maxsize=max_inflight`` handoff queue — the handoff
+blocking IS the backpressure that lets the request queue accumulate and
+the next coalesce grow. Every dispatch goes through the dispatch guard
+(retries, ``oom`` -> ``empty_cache``, abandon), built with the store's
+device so that a CUDA error surfaces inside it; a dispatch the guard
+abandons quarantines the model. There is no fallback device or arm.
+
+The ONLY device->host transfer in this module is the single copy of a
+completed microbatch's result — one crossing amortized over the batch's
+requests.
+"""
+
+import queue as _stdqueue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from flake16_framework_tpu_torch.resilience import guard as _guard
+from flake16_framework_tpu_torch.serve.queue import ServeError
+
+
+class Microbatcher:
+    """Collector + bounded dispatcher pool between a
+    :class:`~flake16_framework_tpu_torch.serve.queue.RequestQueue` and an
+    :class:`~flake16_framework_tpu_torch.serve.store.ExecutableStore`."""
+
+    def __init__(self, store, requests, *, buckets=(8, 32, 128),
+                 max_inflight=2, guard=None, stats=None):
+        self.store = store
+        self.requests = requests
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.max_rows = self.buckets[-1]
+        self.guard = guard if guard is not None else _guard.default_guard(
+            device=store.device)
+        self.stats = stats
+        # The JAX batcher's SLO monitor: telemetry, ROADMAP.md §A 6.
+        self.quarantined = {}
+        # Guards quarantined writes: every dispatcher-pool worker can
+        # quarantine on an abandoned dispatch. Admission reads stay
+        # lock-free — a stale miss admits one request that fails with the
+        # same DispatchAbandoned, which is benign.
+        self._quarantine_lock = threading.Lock()
+        self.inflight = 0  # dispatches currently inside _run_batch
+        self._inflight_lock = threading.Lock()
+        self._handoff = _stdqueue.Queue(maxsize=int(max_inflight))
+        self._stop = threading.Event()
+        self._threads = []
+        self._max_inflight = int(max_inflight)
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self):
+        self._stop.clear()
+        self._threads = [threading.Thread(
+            target=self._collect, name="serve-collector", daemon=True)]
+        self._threads += [threading.Thread(
+            target=self._dispatch_loop, name=f"serve-dispatch-{i}",
+            daemon=True) for i in range(self._max_inflight)]
+        for t in self._threads:
+            t.start()
+
+    def stop(self, timeout=5.0):
+        """Stop collecting; in-flight and handed-off batches drain.
+        Returns True when every worker thread exited within ``timeout``
+        (the shared deadline, not per-thread) — the drain path
+        escalates to :meth:`abort_pending` on False."""
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        clean = True
+        for t in self._threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+            clean = clean and not t.is_alive()
+        self._threads = []
+        return clean
+
+    def abort_pending(self, exc):
+        """Fail every handed-off-but-unstarted batch with ``exc`` and
+        return the request count — the drain deadline's
+        checkpoint-and-abort escalation. A request wedged INSIDE a
+        dispatch belongs to its (daemon) worker and is not reclaimed
+        here; its future completes or fails from the guard."""
+        n = 0
+        while True:
+            try:
+                batch = self._handoff.get_nowait()
+            except _stdqueue.Empty:
+                return n
+            for r in batch:
+                r._fail(exc)
+                n += 1
+            self._handoff.task_done()
+
+    # -- threads ---------------------------------------------------------
+
+    def _collect(self):
+        while not self._stop.is_set():
+            batch = self.requests.take_batch(self.max_rows, wait_s=0.05)
+            if batch:
+                self._handoff.put(batch)
+
+    def _dispatch_loop(self):
+        if self.store.device.type == "cuda":
+            # A new thread starts on the current device, not on the
+            # service's: set it explicitly.
+            torch.cuda.set_device(self.store.device)
+        while True:
+            try:
+                batch = self._handoff.get(timeout=0.05)
+            except _stdqueue.Empty:
+                if self._stop.is_set():
+                    return
+                continue
+            with self._inflight_lock:
+                self.inflight += 1
+            try:
+                self._run_batch(batch)
+            finally:
+                with self._inflight_lock:
+                    self.inflight -= 1
+                self._handoff.task_done()
+
+    # -- dispatch --------------------------------------------------------
+
+    def _bucket_for(self, rows):
+        for b in self.buckets:
+            if rows <= b:
+                return b
+        return self.buckets[-1]
+
+    def _fail_batch(self, batch, exc):
+        for r in batch:
+            r._fail(exc)
+
+    def _run_batch(self, batch):
+        req0 = batch[0]
+        model = self.store.registry.get(req0.model_id)
+        if model is None:
+            self._fail_batch(batch, ServeError(
+                f"model not registered: {req0.model_id}"))
+            return
+        if req0.model_id in self.quarantined:
+            self._fail_batch(batch, ServeError(
+                f"model quarantined: {req0.model_id} "
+                f"[{self.quarantined[req0.model_id]['fault_class']}]"))
+            return
+
+        rows = sum(r.n for r in batch)
+        bucket = self._bucket_for(rows)
+        xpad = np.zeros((bucket, len(model.cols)), dtype=np.float32)
+        off = 0
+        for r in batch:
+            xpad[off:off + r.n] = r.x
+            off += r.n
+
+        def thunk():
+            return self.store.call(model, req0.kind, xpad)
+
+        try:
+            # obs.span("serve.dispatch") and xprof_trace: telemetry, §A 6.
+            out = self.guard.call(
+                thunk, config_index=model.config_index,
+                label=f"serve:{req0.model_id}:{req0.kind}")
+        except Exception as e:
+            if isinstance(e, _guard.DispatchAbandoned):
+                with self._quarantine_lock:
+                    self.quarantined[req0.model_id] = {
+                        "fault_class": e.fault_class,
+                        "attempts": len(e.attempts),
+                        "kind": req0.kind,
+                    }
+            self._fail_batch(batch, e)
+            return
+
+        host = out.cpu().numpy()
+        t_done = time.perf_counter()
+        off = 0
+        for r in batch:
+            r._complete(host[off:off + r.n].copy())
+            off += r.n
+            if self.stats is not None:
+                self.stats.record((t_done - r.t_submit) * 1000.0)
+        # obs.event, obs.counter_add and obs.gauge calls: telemetry, §A 6.

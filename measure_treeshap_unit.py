@@ -60,7 +60,7 @@ def main():
     from flake16_framework_tpu_torch.kernels import build
     from flake16_framework_tpu_torch.kernels import treeshap_unit as tunit
     from flake16_framework_tpu_torch.ops.treeshap import bucket_inputs
-    from flake16_framework_tpu_torch.pipeline import fit_shap_forest
+    from flake16_framework_tpu_torch.pipeline import fit_shap_model
     from flake16_framework_tpu_torch.utils.synth import make_tests_json
 
     log = build.build("treeshap_unit")["treeshap_unit"]
@@ -84,7 +84,7 @@ def main():
 
     rows = []
     for keys in SHAP_CONFIGS:
-        xp, forest = fit_shap_forest(keys, feats, labels)
+        xp, _, _, forest = fit_shap_model(keys, feats, labels)
         x = xp.contiguous()
         for cap, args in bucket_inputs(forest, x.shape[1]):
             ref = run(args, x)

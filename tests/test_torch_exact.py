@@ -262,7 +262,7 @@ def test_lopo_engine_takes_its_folds_from_the_projects():
 
 
 def test_shap_fit_follows_the_tier_rule(monkeypatch):
-    """``fit_shap_forest`` grows a Decision Tree on the exact grower and an
+    """``fit_shap_model`` grows a Decision Tree on the exact grower and an
     ensemble on the histogram grower."""
     rs = np.random.RandomState(0)
     feats = rs.lognormal(size=(120, 16)).astype(np.float32)
@@ -274,7 +274,7 @@ def test_shap_fit_follows_the_tier_rule(monkeypatch):
                             calls.append(_n) or _r(*a, **k))
     for model in ("Decision Tree", "Random Forest"):
         keys = ("NOD", "Flake16", "Scaling", "SMOTE", model)
-        _, forest = tpipe.fit_shap_forest(
+        _, _, _, forest = tpipe.fit_shap_model(
             keys, feats, labels, max_depth=6,
             tree_overrides={"Random Forest": 2}, device="cpu")
         assert forest.feature.shape[0] == (1 if model == "Decision Tree"

@@ -423,3 +423,62 @@ def test_shap_grid_card_equals_cpu(tmp_path, mode):
         assert err <= 1e-5 * float(np.abs(c).max()) + 1e-7, (name, err)
         if mode == "interaction":
             assert np.array_equal(g, g.transpose(0, 2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [
+    ("NOD", "Flake16", "None", "SMOTE", "Random Forest"),
+    ("OD", "FlakeFlagger", "None", "Tomek Links", "Extra Trees"),
+], ids=["rf-cap16", "et-cap7"])
+def test_forest_shap_graph_card_equals_cpu(keys):
+    """The single-bucket engine the scoring service runs
+    (``forest_shap_graph``: one K2 launch over every (tree, leaf slot)
+    row, dead rows included) on the card against the same call on the
+    CPU, given the same forest (grown on the CPU at N = 400, 8 trees,
+    depth 12, trimmed as the registry trims it), at the serving buckets'
+    sample counts: within 1e-5 * max|CPU| + 1e-7, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from flake16_framework_tpu_torch.ops import trees, treeshap
+    from flake16_framework_tpu_torch.serve.registry import fit_model
+    from flake16_framework_tpu_torch.utils.synth import make_dataset
+
+    feats, labels, _ = make_dataset(n_tests=400, n_projects=6, seed=5)
+    model = fit_model(keys, feats, labels, max_depth=12, device="cpu",
+                      tree_overrides={"Random Forest": 8, "Extra Trees": 8})
+    cpu_forest = model.forest
+    gpu_forest = trees.Forest(*(t.cuda() for t in cpu_forest[:-1]),
+                              cpu_forest.max_depth)
+    xp = (torch.from_numpy(feats[:, list(model.cols)].astype(np.float32))
+          - model.mu) @ model.wmat
+    for s in (8, 32, 128):
+        x = xp[:s].contiguous()
+        want = treeshap.forest_shap_graph(cpu_forest, x)
+        before = treeshap_unit.unit_shap.launches
+        got = treeshap.forest_shap_graph(gpu_forest, x.cuda())
+        torch.cuda.synchronize()
+        assert treeshap_unit.unit_shap.launches == before + 1
+        assert got.shape == want.shape == (s, len(model.cols))
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()) + 1e-7, (s, err)
+        assert float(want.abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_guard_watchdog_on_the_card(device):
+    """The dispatch guard with its watchdog on (``envelope_s``) runs the
+    thunk in a worker thread, which sets the caller's CUDA device: given
+    as plain "cuda" (no index, as ``device.resolve`` gives it) or with an
+    index, the guarded call completes with the thunk's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from flake16_framework_tpu_torch.resilience.guard import (
+        BackoffPolicy, DispatchGuard,
+    )
+
+    g = DispatchGuard(policy=BackoffPolicy(max_attempts=1), envelope_s=60.0,
+                      device=torch.device(device))
+    x = torch.arange(8, device="cuda", dtype=torch.float32)
+    out = g.call(lambda: (x * 2).sum(), label="watchdog")
+    assert float(out) == 56.0 and not g.retries

@@ -1,8 +1,8 @@
 """The port's preprocessing, kNN and resamplers against the JAX package on
 the same numpy inputs. Grades, per test: scaler rtol=1e-6; PCA transform
 atol=1e-4 after the sign rule (two LAPACKs); kNN indices equal on tie-free
-inputs and distances rtol=1e-5; Tomek and ENN keep-masks equal; SMOTE rows
-rtol=1e-6 with labels and validity equal."""
+inputs and distances rtol=1e-5; Tomek and ENN keep-masks equal; resampled
+rows, labels and validity bitwise."""
 
 import jax
 import jax.numpy as jnp
@@ -133,8 +133,7 @@ def test_resample_rows(code):
     xt, yt, wt = tres.resample(
         torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(w), code,
         torch.from_numpy(np.asarray(key, np.int64)), 2 * n)
-    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-6,
-                               atol=1e-6)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
     np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
     if code == 2:

@@ -78,7 +78,7 @@ def data():
 def test_member_forest_matches_jax_pieces(data, keys):
     """A grid member's fit under its ``fold_in`` key: the JAX package's
     preprocess -> split -> resample -> fit chain (``make_shap_plan_fn``'s
-    ``shap_one``) against ``fit_shap_forest(key=...)``, bitwise."""
+    ``shap_one``) against ``fit_shap_model(key=...)``, bitwise."""
     feats, labels = data
     fl, cols, prep, bal, spec = jcfg.resolve_config(keys)
     spec = type(spec)(spec.name, SMALL["tree_overrides"].get(spec.name,
@@ -106,8 +106,8 @@ def test_member_forest_matches_jax_pieces(data, keys):
         jnp.asarray(labels == fl),
         jax.random.fold_in(jax.random.PRNGKey(0), index))
     key = trng.fold_in(trng.prng_key(0), index)
-    got_xp, got = tpipe.fit_shap_forest(keys, feats, labels, device="cpu",
-                                        key=key, **SMALL)
+    got_xp, _, _, got = tpipe.fit_shap_model(keys, feats, labels,
+                                             device="cpu", key=key, **SMALL)
     assert got_xp.numpy().tobytes() == np.asarray(xp).tobytes()
     for name in jtrees.Forest._fields[:-1]:
         a = getattr(got, name).numpy()
@@ -115,9 +115,9 @@ def test_member_forest_matches_jax_pieces(data, keys):
         assert a.shape == b.shape and a.tobytes() == b.astype(
             a.dtype).tobytes(), name
     # the default key is the staged path's PRNGKey(0)
-    _, default = tpipe.fit_shap_forest(keys, feats, labels, device="cpu",
+    *_, default = tpipe.fit_shap_model(keys, feats, labels, device="cpu",
                                        **SMALL)
-    _, zero = tpipe.fit_shap_forest(keys, feats, labels, device="cpu",
+    *_, zero = tpipe.fit_shap_model(keys, feats, labels, device="cpu",
                                     key=trng.prng_key(0), **SMALL)
     assert torch.equal(default.feature, zero.feature)
     assert torch.equal(default.threshold, zero.threshold)
