@@ -41,6 +41,20 @@ plain version, times K2 at S = 8, 32 and 128, and runs the drain drill: the
 ``serve --hold`` verb in a child process, SIGTERM, its drain accounting,
 and the flushed warm manifest against a reload in this process.
 
+The fleet phases put the serve phase's persisted registry behind three
+worker processes on the card (``serve --fleet 3``: each worker its own
+CUDA context, loading the registry and warming with 9 K2 launches), the
+router in front. ``fleet_path`` drives the same 1024-request load
+through the router, reads each worker's ready time, memory and K2
+launches (``stats``), and holds the fleet's answers for fixed rows against
+the in-process store (predict bitwise, SHAP within SHAP_TOL, bitwise
+reported). ``fleet_drill`` keeps 8 clients scoring through a second
+fleet while worker 1 SIGKILLs itself as its fifth request arrives
+(``F16_FAULT_INJECT=1:5:worker-kill``), then worker 0 is SIGKILLed from
+here, then all three restart one at a time: zero client-visible errors,
+the failover windows, the survivors' answers, the respawns' re-warm
+launches and all-new pids.
+
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
@@ -1090,9 +1104,9 @@ SERVE_REQUESTS, SERVE_ROWS, SERVE_CLIENTS = 1024, 16, 8
 
 
 class _KindClock:
-    """The service as ``sustained_load`` drives it, with each request's
-    wall on the client's side kept by kind, and the store's dispatches
-    counted by kind."""
+    """The service (or the fleet's router) as ``sustained_load`` drives
+    it, with each request's wall on the client's side kept by kind, and,
+    in one process, the store's dispatches counted by kind."""
 
     def __init__(self, svc):
         import threading
@@ -1102,6 +1116,9 @@ class _KindClock:
         self.ms = {"predict": [], "shap": []}
         self.dispatches = {"predict": 0, "shap": 0}
         self._lock = threading.Lock()
+        if not hasattr(svc, "store"):
+            self.dispatches = {"predict": None, "shap": None}
+            return
         real = svc.store.call
 
         def counted(model, kind, x):
@@ -1377,6 +1394,367 @@ def run_drain_drill(tmp):
             "drain": acct["drain"], "counts": acct["counts"],
             "models": acct["models"], "manifest_buckets": manifest["buckets"],
             "manifest_equal_after_reload": True}
+
+
+# The fleet phases: the serve phase's persisted registry (its three
+# models, seed 0, full width) behind W = 3 worker processes on the card,
+# each with its own CUDA context, at the serve phase's buckets. The
+# drill's fleet starts with worker 1 set to SIGKILL itself as its fifth
+# score request arrives, with SHAP requests in flight.
+FLEET_WORKERS = 3
+FLEET_INJECT = "1:5:worker-kill"
+# The router re-dispatches an orphan after the repair loop's 50 ms floor,
+# not after the dispatch guard's default backoff of seconds.
+FLEET_ROUTER_ENV = {"F16_FAULT_BACKOFF_S": "0"}
+
+
+def _smi_apps():
+    """{pid: MiB} of the card's compute processes, as ``nvidia-smi
+    --query-compute-apps=pid,used_memory`` lists them. The pids are the
+    NVIDIA driver's, not this container's: where every process of the
+    shows as one pid, a worker's share is read from the total's growth
+    over the fleet's start."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit() and mib.strip().isdigit():
+            apps[int(pid)] = int(mib)
+    return apps
+
+
+def _ready_launches(handle):
+    """The launch counts the worker's last WORKER_READY line carries (its
+    warm's, as the manager's log keeps them)."""
+    from flake16_framework_tpu_torch.serve.fleet import WORKER_READY
+
+    with open(handle.log_path) as fd:
+        lines = [ln for ln in fd if ln.startswith(WORKER_READY)]
+    return json.loads(lines[-1].split("launches=", 1)[1])
+
+
+def run_fleet_path(tmp, registry, feats):
+    """``serve --fleet 3`` on the card, as the CLI runs it: the serve
+    phase's persisted registry behind ``FLEET_WORKERS`` workers on cuda,
+    the router in front, and ``sustained_load`` through it (1024 requests
+    of 16 rows, 8 clients, predict and SHAP in turn). The parent's launch
+    counts are set to 0 just before the fleet starts and read just after
+    the load (the fleet fits nothing: K1 0); the workers' are read
+    through ``stats`` (each starts at 0: its warm, 9 K2 launches, and its
+    share of the load). Then the fleet answers a fixed set of rows, one
+    request at a time, for ``check_fleet_values``. Returns (launches,
+    report, answers)."""
+    from flake16_framework_tpu_torch.serve.cli import sustained_load
+    from flake16_framework_tpu_torch.serve.fleet import Fleet
+    from flake16_framework_tpu_torch.serve.router import FleetRouter
+
+    ids = registry.ids()
+    smi_before = _smi_apps()
+    _reset_counts()
+    t0 = time.time()
+    fleet = Fleet(registry.root, FLEET_WORKERS,
+                  workdir=os.path.join(tmp, "fleet-path"),
+                  buckets=SERVE_BUCKETS)
+    try:
+        fleet.start()
+        start_s = time.time() - t0
+        with FleetRouter(fleet, environ=FLEET_ROUTER_ENV) as router:
+            warm = router.scrape_worker_stats()
+            smi_warm = _smi_apps()
+            clock = _KindClock(router)
+            load = sustained_load(clock, feats, ids,
+                                  n_requests=SERVE_REQUESTS, rows=SERVE_ROWS,
+                                  kinds=("predict", "shap"),
+                                  clients=SERVE_CLIENTS)
+            after = router.scrape_worker_stats()
+            smi_load = _smi_apps()
+            parent = _read_counts()
+            stats = router.stats()
+            answers = {(mid, kind, b): router.score(mid, feats[:b],
+                                                    kind=kind, timeout=120)
+                       for mid in ids for kind in ("predict", "shap")
+                       for b in SERVE_BUCKETS}
+    finally:
+        fleet.stop()
+    _require(load["n_errors"] == 0, f"fleet load errors: {load['errors']}")
+    _require(load["completed"] == SERVE_REQUESTS,
+             f"fleet load completed {load['completed']} of "
+             f"{load['requests']}")
+    _require(sorted(warm) == sorted(after) == list(range(FLEET_WORKERS)),
+             f"fleet stats from workers {sorted(warm)}, {sorted(after)}")
+    n_warm = len(ids) * len(SERVE_BUCKETS)
+    workers = []
+    for i in range(FLEET_WORKERS):
+        w, a = warm[i], after[i]
+        _require(w["device"].startswith("cuda")
+                 and w["launches"]["treeshap_unit"] == n_warm
+                 and a["launches"]["hist_cumsum"] == 0,
+                 f"fleet worker {i}: {w['device']}, launches "
+                 f"{w['launches']} at ready, {a['launches']} after")
+        workers.append({
+            "pid": a["pid"], "ready_s": fleet.workers[i].ready_s[0],
+            "requests": a["requests"], "p50_ms": a["p50_ms"],
+            "p99_ms": a["p99_ms"], "launches_warm": w["launches"],
+            "launches": a["launches"],
+            "max_memory_allocated_mb": a.get("max_memory_allocated_mb")})
+    k2 = sum(w["launches"]["treeshap_unit"] for w in workers)
+    _require(k2 > FLEET_WORKERS * n_warm and parent["hist_cumsum"] == 0,
+             f"fleet K2 launches in the workers {k2}, parent {parent}")
+    launches = {"hist_cumsum": parent["hist_cumsum"], "treeshap_unit": k2}
+    smi = {k: sum(v.values()) for k, v in (
+        ("before", smi_before), ("warm", smi_warm), ("load", smi_load))}
+    report = {"workers": workers, "start_s": start_s, "load": load,
+              "by_kind": clock.by_kind(load["wall_s"]),
+              "router": stats["router"], "parent_launches": parent,
+              "smi_apps": {"before": smi_before, "warm": smi_warm,
+                           "load": smi_load},
+              "smi_total_mib": smi,
+              "smi_mib_per_worker": {
+                  k: (smi[k] - smi["before"]) / FLEET_WORKERS
+                  for k in ("warm", "load")}}
+    return launches, report, answers
+
+
+def check_fleet_values(answers, registry, feats):
+    """The fleet's answers for each model, kind and bucket (rows
+    ``feats[:bucket]``, one request at a time) against the in-process
+    store on the card over the same persisted registry, reloaded here as
+    the workers load it: predict exactly, SHAP within SHAP_TOL, and
+    whether SHAP is bitwise. (A reload, not the serve phase's in-memory
+    models: K2's chunks, and so its summation order, follow the rows the
+    forest gives.)"""
+    from flake16_framework_tpu_torch.serve import ExecutableStore, ModelRegistry
+
+    reloaded = ModelRegistry(registry.root)
+    reloaded.load()
+    store = ExecutableStore(reloaded)
+    rows = []
+    for (mid, kind, b), got in answers.items():
+        model = reloaded.get(mid)
+        x = np.ascontiguousarray(feats[:b, list(model.cols)],
+                                 dtype=np.float32)
+        want = store.call(model, kind, x).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        ref = float(np.abs(want).max())
+        bitwise = got.dtype == want.dtype and got.tobytes() == want.tobytes()
+        if kind == "predict":
+            _require(bitwise, f"fleet {mid} predict@{b}: off the in-process "
+                     f"store by {err}")
+        else:
+            _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+                     f"fleet {mid} shap@{b}: off the in-process store by "
+                     f"{err} (max {ref})")
+        rows.append({"model": mid, "kind": kind, "bucket": b,
+                     "bitwise": bitwise, "max_abs_err": err,
+                     "max_abs": ref})
+    return rows
+
+
+class _ClosedLoop:
+    """Clients scoring through the router until stopped (predict and SHAP
+    in turn, 16-row windows, models round robin), every outcome counted:
+    an exception is a request lost to the client."""
+
+    def __init__(self, router, feats, model_ids, clients=SERVE_CLIENTS):
+        import threading
+
+        self.ok = 0
+        self.errors = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+
+        def client(ci):
+            j = ci
+            while not self._stop.is_set():
+                off = (j * SERVE_ROWS) % (feats.shape[0] - SERVE_ROWS)
+                try:
+                    router.score(model_ids[j % len(model_ids)],
+                                 feats[off:off + SERVE_ROWS],
+                                 kind=("predict", "shap")[j % 2],
+                                 timeout=120)
+                    with self._lock:
+                        self.ok += 1
+                except Exception as e:  # the verdict's data
+                    with self._lock:
+                        self.errors.append(repr(e))
+                j += clients
+
+        self._threads = [threading.Thread(target=client, args=(ci,),
+                                          daemon=True)
+                         for ci in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(180)
+        _require(not any(t.is_alive() for t in self._threads),
+                 "fleet drill: a client did not finish")
+
+
+def _await(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        _require(time.monotonic() < deadline, f"fleet drill: {what}")
+        time.sleep(0.05)
+
+
+def _served(router):
+    """Requests each worker reports served (its heartbeat's count)."""
+    return [w["hb"].get("requests") or 0 for w in router.stats()["workers"]]
+
+
+def run_fleet_drill(tmp, registry, feats):
+    """The fleet drill on the card, under a closed-loop load of 8 clients
+    through the router the whole time: a fleet of ``FLEET_WORKERS`` whose
+    worker 1 SIGKILLs itself as its fifth score request arrives
+    (``F16_FAULT_INJECT=1:5:worker-kill``, SHAP requests in flight), then,
+    once its failover window has closed, a SIGKILL of worker 0 from here;
+    both respawn together; then a rolling restart of all three. Zero
+    client-visible errors; each kill's failover window closed, the
+    workers not killed answering through it, each respawn charged to the
+    budget and re-warmed (its K2 launches); every pid new after the
+    walk."""
+    import signal
+
+    from flake16_framework_tpu_torch.serve.fleet import Fleet
+    from flake16_framework_tpu_torch.serve.router import FleetRouter
+
+    env = dict(os.environ, F16_FAULT_INJECT=FLEET_INJECT)
+    t0 = time.time()
+    fleet = Fleet(registry.root, FLEET_WORKERS,
+                  workdir=os.path.join(tmp, "fleet-drill"),
+                  buckets=SERVE_BUCKETS, env=env)
+    kills = []
+    try:
+        fleet.start()
+        with FleetRouter(fleet, environ=FLEET_ROUTER_ENV) as router:
+            load = _ClosedLoop(router, feats, registry.ids())
+            try:
+                # Worker 1 dies by its plan within the load's first
+                # requests; as soon as its failover window has closed,
+                # worker 0 is SIGKILLed, and the two respawn together.
+                for victim, how in ((1, "worker-kill"), (0, "SIGKILL")):
+                    handle = fleet.workers[victim]
+                    old_pid, n_fo = handle.pid, len(router.failovers)
+                    served = _served(router)
+                    if how == "SIGKILL":
+                        os.kill(old_pid, signal.SIGKILL)
+                    _await(lambda: handle.restarts >= 1, 120,
+                           f"{how} of worker {victim} not seen")
+                    # The window closes when the last orphan (a request
+                    # in flight at the kill) settles elsewhere; a kill
+                    # that found none opens no window.
+                    _await(lambda: len(router.failovers) > n_fo
+                           or handle.pid != old_pid, 60,
+                           f"{how}: no respawn of worker {victim}")
+                    time.sleep(0.5)  # the survivors' next heartbeats
+                    fo = (dict(router.failovers[-1])
+                          if len(router.failovers) > n_fo else None)
+                    after = _served(router)
+                    survivors = [i for i in range(FLEET_WORKERS)
+                                 if fleet.workers[i].restarts == 0]
+                    _require(all(after[i] > served[i] for i in survivors),
+                             f"{how}: survivors served {served} -> {after}")
+                    kills.append({
+                        "how": how, "worker": victim, "old_pid": old_pid,
+                        "failover_s": (fo["t_recovered"] - fo["t_detect"]
+                                       if fo else None),
+                        "orphans": fo["n_orphans"] if fo else 0,
+                        "survivors_served": {i: after[i] - served[i]
+                                             for i in survivors}})
+                fleet.wait_ready([1, 0])
+                for k in kills:
+                    handle = fleet.workers[k["worker"]]
+                    _await(lambda: router.links[k["worker"]].hb.get("pid")
+                           == handle.pid, 60, f"{k['how']}: no heartbeat "
+                           f"from the respawned worker {k['worker']}")
+                    _require(handle.restarts == 1 and not handle.failed
+                             and handle.pid != k["old_pid"],
+                             f"{k['how']}: worker {k['worker']} restarts "
+                             f"{handle.restarts}, failed {handle.failed}")
+                    k.update(new_pid=handle.pid, restarts=handle.restarts,
+                             ready_s=handle.ready_s[-1],
+                             rewarm_launches=_ready_launches(handle))
+                pids_before = fleet.pids()
+                errors_before = len(load.errors)
+                rolling = router.rolling_restart(drain_deadline_s=15)
+                _require(not set(fleet.pids()) & set(pids_before)
+                         and len(rolling["steps"]) == FLEET_WORKERS,
+                         f"rolling restart: pids {pids_before} -> "
+                         f"{fleet.pids()}")
+                _require(len(load.errors) == errors_before,
+                         f"rolling restart errors: {load.errors[-8:]}")
+                time.sleep(1.0)  # the load through the new fleet
+            finally:
+                load.stop()
+            stats = router.stats()
+    finally:
+        fleet.stop()
+    _require(not load.errors, f"fleet drill errors: {load.errors[:8]}")
+    n_warm = len(registry.ids()) * len(SERVE_BUCKETS)
+    for k in kills:
+        _require(k["rewarm_launches"]["treeshap_unit"] == n_warm,
+                 f"{k['how']}: re-warm launches {k['rewarm_launches']}")
+    return {"kills": kills, "rolling": rolling, "ok": load.ok,
+            "errors": len(load.errors), "router": stats["router"],
+            "ready_s": [h.ready_s for h in fleet.workers],
+            "wall_s": time.time() - t0}
+
+
+def print_fleet(fleet_rep, fleet_launches, drill, smi):
+    """The fleet phases' lines (``smi`` is the card's name and limit)."""
+    for i, w in enumerate(fleet_rep["workers"]):
+        print(f"fleet worker {i} ({smi}): pid {w['pid']}, ready after "
+              f"{w['ready_s']:.3f} s, {w['requests']} requests (p50 "
+              f"{w['p50_ms']} ms, p99 {w['p99_ms']} ms), K2 "
+              f"{w['launches']['treeshap_unit']} launches "
+              f"({w['launches_warm']['treeshap_unit']} at warm), K1 "
+              f"{w['launches']['hist_cumsum']}, max allocated "
+              f"{w['max_memory_allocated_mb']:.1f} MB", flush=True)
+    fl = fleet_rep["load"]
+    print(f"fleet path ({smi}): {FLEET_WORKERS} workers ready in "
+          f"{fleet_rep['start_s']:.2f} s; load {fl['requests']} "
+          f"requests of {fl['rows']} rows from {fl['clients']} clients "
+          f"in {fl['wall_s']:.3f} s, {fl['rps']} rps, p50 "
+          f"{fl['p50_ms']} ms, p99 {fl['p99_ms']} ms, n_errors "
+          f"{fl['n_errors']}; router {json.dumps(fleet_rep['router'])}; "
+          f"launches {fleet_launches}; nvidia-smi compute apps' total "
+          f"{json.dumps(fleet_rep['smi_total_mib'])} MiB, a worker "
+          f"{json.dumps(fleet_rep['smi_mib_per_worker'])} MiB",
+          flush=True)
+    for kind, k in fleet_rep["by_kind"].items():
+        print(f"fleet {kind} ({smi}): {k['requests']} requests, "
+              f"{k['rps']:.1f} rps, p50 {k['p50_ms']:.3f} ms, p99 "
+              f"{k['p99_ms']:.3f} ms (client side)", flush=True)
+    vals = fleet_rep["values"]
+    shap_vals = [r for r in vals if r["kind"] == "shap"]
+    print(f"fleet values against the in-process store (reloaded "
+          f"registry): predict bitwise in all {len(vals) - len(shap_vals)}"
+          f", SHAP bitwise in {sum(r['bitwise'] for r in shap_vals)} of "
+          f"{len(shap_vals)}, max err "
+          f"{max(r['max_abs_err'] for r in shap_vals):.3g}", flush=True)
+    for k in drill["kills"]:
+        fo = ("none (no request in flight)" if k["failover_s"] is None
+              else f"{k['failover_s']:.4f} s over {k['orphans']} "
+              f"orphans")
+        print(f"fleet drill {k['how']} of worker {k['worker']} "
+              f"({smi}): failover window {fo}, restarts "
+              f"{k['restarts']}, respawn ready after "
+              f"{k['ready_s']:.3f} s, re-warm K2 "
+              f"{k['rewarm_launches']['treeshap_unit']} launches, "
+              f"survivors served {json.dumps(k['survivors_served'])}",
+              flush=True)
+    print(f"fleet drill rolling restart ({smi}): steps "
+          f"{[st['wall_s'] for st in drill['rolling']['steps']]} s, "
+          f"all pids new; {drill['ok']} requests answered, "
+          f"{drill['errors']} errors through both kills and the walk; "
+          f"router {json.dumps(drill['router'])}; drill wall "
+          f"{drill['wall_s']:.1f} s", flush=True)
 
 
 # The crash-tolerance drills run ``write_scores`` in child processes on
@@ -1906,6 +2284,13 @@ def main():
             svc.stop()
         serve["drain_drill"] = run_drain_drill(tmp)
         lap("serve_drain_drill")
+        fleet_launches, fleet_rep, fleet_answers = run_fleet_path(
+            tmp, serve_reg, serve_feats)
+        fleet_rep["values"] = check_fleet_values(fleet_answers, serve_reg,
+                                                 serve_feats)
+        lap("fleet_path")
+        drill = run_fleet_drill(tmp, serve_reg, serve_feats)
+        lap("fleet_drill")
         load = serve["load"]
         print(f"serve path ({smi}): registered {len(GRID_CONFIGS)} models "
               f"in {serve['register_s']:.2f} s (K1 "
@@ -1946,6 +2331,7 @@ def main():
               f"{d['ready_s']:.1f} s, drain {json.dumps(d['drain'])}, "
               f"requests {json.dumps(d['counts'])}; manifest == reloaded "
               f"store's warm_manifest", flush=True)
+        print_fleet(fleet_rep, fleet_launches, drill, smi)
         by_name = {c["config"]: c for c in configs}
         prof = []
         for k in MAIN_CONFIGS + DT_CONFIGS[:1]:
@@ -1980,7 +2366,7 @@ def main():
     paths = {"scores": score_launches, "planner": planner_launches,
              "lopo": lopo_launches,
              "shap": shap_launches, "shap_grid": grid_launches,
-             "serve": serve_launches,
+             "serve": serve_launches, "fleet": fleet_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"]}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
@@ -2002,6 +2388,7 @@ def main():
               "shap_path_wall_s": shap_wall, "shap_grid_path": grid_rows,
               "shap_grid_modes": grid_modes, "treeshap_unit_s64": k2_grid,
               "shap_grid_explain_profiles": explains, "serve_path": serve,
+              "fleet_path": fleet_rep, "fleet_drill": drill,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,
               "cuda": torch.version.cuda}

@@ -12,8 +12,10 @@ CUDA kernels carry the device work: the histogram step of the tree grower
 The verbs (``__main__``): ``scores`` (all 216 configs; ``lopo``,
 ``planner``, ``fused``, ``dispatch=N``), ``resume``, ``shap`` (the paper's
 two configs, or ``grid|interventional|interaction`` over the whole grid),
-``figures`` and ``serve`` (the scoring service in one process,
-``serve/``).
+``figures`` and ``serve`` (the scoring service in one process, or a fleet
+of worker processes behind a router, ``serve/``). ``obs/`` holds the
+telemetry the serving stack stands on: the event sink, the flight ring
+and the SLO monitor.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,9 @@ of N samples) or interaction values of N samples for every config of the
 grid into ``shap-<mode>.pkl``, and ``... figures`` the paper's LaTeX
 tables and plots from ``tests.json``, ``scores.pkl`` and ``shap.pkl``
 (host code, no device), and ``... serve [--flags]`` stands the scoring
-service up in one process (``serve/cli.py``). ``scores`` and ``resume``
+service up in one process, or as a fleet of worker processes behind a
+router (``--fleet W``; ``serve/cli.py``). With ``F16_TELEMETRY`` set,
+every command writes its events and manifest (``obs/``). ``scores`` and ``resume``
 also take ``planner`` (the configs run as family plans), ``fused`` (each
 config's folds grown as one tree batch) and ``dispatch=N`` (at most N
 trees a fold grown as one batch), and exit with 23 when configs were
@@ -80,6 +82,9 @@ def main(argv=None):
     if not argv:
         raise ValueError("No command given")
     command, *args = argv
+    from flake16_framework_tpu_torch import obs
+
+    obs.configure_from_env()
     if command not in ("scores", "resume", "shap", "figures", "serve"):
         raise ValueError(f"Unrecognized command {command!r} (this slice "
                          f"of the port has: scores, resume, shap, figures, "

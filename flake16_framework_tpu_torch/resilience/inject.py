@@ -35,11 +35,17 @@ are invisible to the dispatch guard (``check`` skips them), and the
 supervisor strips them from the child environment on restart, so each
 injected kill fires exactly once.
 
-The fleet WORKER classes ``worker-kill`` and ``worker-stall``
-(``<worker>:<request#>:worker-kill``) belong to the JAX package's serving
-fleet. The port parses them, so that a plan holding them is accepted by
-both packages, and otherwise ignores them: ``check`` and
-``process_signal`` skip them and a restart strips them.
+The fleet WORKER classes ``worker-kill`` and ``worker-stall`` read
+
+    <worker>:<request#>:worker-kill
+
+where the first field is the worker's index in its fleet and the second
+the 1-based score request whose arrival triggers the fault
+(``serve/fleet.py``): ``worker-kill`` SIGKILLs the worker with its
+requests in flight, ``worker-stall`` freezes it (no heartbeats, accepted
+requests never answered). ``check`` and ``process_signal`` skip them, and
+the supervisor and the fleet manager strip them from a restarted child's
+environment.
 """
 
 import os
@@ -56,9 +62,9 @@ PROCESS_CLASSES = {
     "sigterm": _signal.SIGTERM,
 }
 
-# The JAX package's fleet worker classes (<worker>:<request#>:worker-kill):
-# parsed so a plan means the same in both packages, skipped by ``check``
-# and ``process_signal``, stripped on a supervised restart.
+# Fleet worker classes (<worker>:<request#>:worker-kill): delivered by the
+# fleet worker as a score request arrives, skipped by ``check`` and
+# ``process_signal``, stripped on a restart.
 WORKER_CLASSES = ("worker-kill", "worker-stall")
 
 _CLASS_ALIASES = {
@@ -95,7 +101,7 @@ class FaultPlan:
         (config, attempt) dispatch; no-op otherwise. Process entries
         (sigkill/sigterm) are NOT the guard's to deliver — they belong to
         the journal's fold-append points — and worker entries belong to
-        the JAX package's fleet, so both are skipped here."""
+        the fleet worker, so both are skipped here."""
         for k, j, fc in self.entries:
             if fc in PROCESS_CLASSES or fc in WORKER_CLASSES:
                 continue
@@ -119,6 +125,23 @@ class FaultPlan:
             if (k is None or k == config_index) and \
                     (j is None or j == fold):
                 return PROCESS_CLASSES[fc]
+        return None
+
+    def worker_entries(self):
+        """The (worker_index, request_1based, class_name) fleet-worker
+        entries — the fleet chaos subset of the plan."""
+        return tuple((k, j, fc) for k, j, fc in self.entries
+                     if fc in WORKER_CLASSES)
+
+    def worker_action(self, worker_index, request_no):
+        """The worker fault class ("worker-kill"/"worker-stall")
+        scheduled for this worker's 1-based ``request_no`` score request,
+        or None. Consulted by the fleet worker BEFORE it submits the
+        request to its service."""
+        for k, j, fc in self.worker_entries():
+            if (k is None or k == worker_index) and \
+                    (j is None or j == request_no):
+                return fc
         return None
 
 
@@ -161,8 +184,9 @@ def parse_plan(spec):
 
 def strip_process_entries(spec):
     """``spec`` minus its process (sigkill/sigterm) AND fleet worker
-    (worker-kill/worker-stall) entries — what the supervisor exports to
-    a restarted child so an injected fault fires exactly once. Returns ""
+    (worker-kill/worker-stall) entries — what the supervisor and the
+    fleet manager export to a restarted child so an injected fault fires
+    exactly once. Returns ""
     when nothing survives."""
     kept = []
     for raw in spec.split(";"):

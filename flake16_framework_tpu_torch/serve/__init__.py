@@ -1,5 +1,5 @@
-"""serve — the scoring service in one process (the JAX package's
-``serve/``, without the multi-process fleet):
+"""serve — the scoring service (the JAX package's ``serve/``), in one
+process or as a fleet:
 
 - ``registry``  — model registry keyed by trained-config artifact
   (config code + per-array shape signature), the sweep's scores ledger
@@ -16,13 +16,19 @@
   latency, and ``drain()`` (admission close, in-flight completion,
   retriable rejection of unstarted requests, durable-state flush with a
   deadline that escalates to checkpoint-and-abort);
+- ``wire``      — the fleet's length-prefixed JSON frames (byte-equal
+  to the JAX package's);
+- ``fleet``     — the worker half (``WorkerServer``, ``worker_main``) and
+  the manager (``Fleet``: spawn, ready, restart budget, flight dump);
+- ``router``    — ``FleetRouter``: health gating, least-loaded pick,
+  hedging, failover, rolling restart;
 - ``cli``       — the ``serve`` verb (``--hold`` = the drain drill's
-  child).
+  child, ``--fleet W``, ``--worker`` = a fleet's child).
 
 SHAP is answered on the Tree SHAP unit kernel (``csrc/treeshap_unit.cu``)
 through ``ops.treeshap.graph_shap``; the RF and ET fits of the registry
-run the histogram kernel. ``wire``, ``fleet`` and ``router`` come with
-ROADMAP.md §A 5, the telemetry (SLO, metrics, spans) with §A 6.
+run the histogram kernel. The metrics exporter comes with ROADMAP.md
+§A 6.
 """
 
 from flake16_framework_tpu_torch.serve.queue import (  # noqa: F401

@@ -9,6 +9,10 @@ the next coalesce grow. Every dispatch goes through the dispatch guard
 (retries, ``oom`` -> ``empty_cache``, abandon), built with the store's
 device so that a CUDA error surfaces inside it; a dispatch the guard
 abandons quarantines the model. There is no fallback device or arm.
+With an SLO monitor, every completed or failed request is observed and
+the burn evaluated once a batch; the dispatch span, the per-request spans
+of sampled requests, the request counter and the queue, inflight and
+latency gauges go to the telemetry (no-ops unless it is on).
 
 The ONLY device->host transfer in this module is the single copy of a
 completed microbatch's result — one crossing amortized over the batch's
@@ -22,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from flake16_framework_tpu_torch import obs
 from flake16_framework_tpu_torch.resilience import guard as _guard
 from flake16_framework_tpu_torch.serve.queue import ServeError
 
@@ -32,7 +37,7 @@ class Microbatcher:
     :class:`~flake16_framework_tpu_torch.serve.store.ExecutableStore`."""
 
     def __init__(self, store, requests, *, buckets=(8, 32, 128),
-                 max_inflight=2, guard=None, stats=None):
+                 max_inflight=2, guard=None, stats=None, monitor=None):
         self.store = store
         self.requests = requests
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -40,7 +45,7 @@ class Microbatcher:
         self.guard = guard if guard is not None else _guard.default_guard(
             device=store.device)
         self.stats = stats
-        # The JAX batcher's SLO monitor: telemetry, ROADMAP.md §A 6.
+        self.monitor = monitor  # obs.slo.SLOMonitor (None = no SLO loop)
         self.quarantined = {}
         # Guards quarantined writes: every dispatcher-pool worker can
         # quarantine on an abandoned dispatch. Admission reads stay
@@ -137,8 +142,14 @@ class Microbatcher:
     def _fail_batch(self, batch, exc):
         for r in batch:
             r._fail(exc)
+        if self.monitor is not None:
+            for _ in batch:
+                self.monitor.observe(error=True)
+            self.monitor.evaluate()
 
     def _run_batch(self, batch):
+        t_start = time.perf_counter()
+        wall_start = time.time()
         req0 = batch[0]
         model = self.store.registry.get(req0.model_id)
         if model is None:
@@ -162,11 +173,21 @@ class Microbatcher:
         def thunk():
             return self.store.call(model, req0.kind, xpad)
 
+        # Batch fan-in as span links: the coalesced requests' trace ids
+        # ride the dispatch span, joining each sampled request to the
+        # microbatch that carried it.
+        links = [r.trace["trace_id"] for r in batch if r.trace]
+        span_fields = {"rows": rows, "bucket": bucket,
+                       "coalesced": len(batch)}
+        if links:
+            span_fields["links"] = links
         try:
-            # obs.span("serve.dispatch") and xprof_trace: telemetry, §A 6.
-            out = self.guard.call(
-                thunk, config_index=model.config_index,
-                label=f"serve:{req0.model_id}:{req0.kind}")
+            with obs.span("serve.dispatch",
+                          key=f"{req0.model_id}/{req0.kind}",
+                          **span_fields):
+                out = self.guard.call(
+                    thunk, config_index=model.config_index,
+                    label=f"serve:{req0.model_id}:{req0.kind}")
         except Exception as e:
             if isinstance(e, _guard.DispatchAbandoned):
                 with self._quarantine_lock:
@@ -184,6 +205,34 @@ class Microbatcher:
         for r in batch:
             r._complete(host[off:off + r.n].copy())
             off += r.n
+            latency_ms = (t_done - r.t_submit) * 1000.0
             if self.stats is not None:
-                self.stats.record((t_done - r.t_submit) * 1000.0)
-        # obs.event, obs.counter_add and obs.gauge calls: telemetry, §A 6.
+                self.stats.record(latency_ms)
+            if self.monitor is not None:
+                self.monitor.observe(latency_ms=latency_ms)
+            if r.trace:
+                # Per-request spans: the queue leg ends at dispatch
+                # start, the request leg now. An adopted cross-process
+                # context carries parent_id (the router's span).
+                tctx = {"trace_id": r.trace["trace_id"],
+                        "span_id": r.trace["span_id"]}
+                if r.trace.get("parent_id"):
+                    tctx["parent_id"] = r.trace["parent_id"]
+                obs.event("span", name="serve.request.queue",
+                          wall_s=round(t_start - r.t_submit, 6),
+                          cold=False, ts=round(wall_start, 4),
+                          model_id=r.model_id, req_kind=r.kind, **tctx)
+                obs.event("span", name="serve.request",
+                          wall_s=round(t_done - r.t_submit, 6),
+                          cold=False,
+                          model_id=r.model_id, req_kind=r.kind, rows=r.n,
+                          coalesced=len(batch), **tctx)
+        obs.counter_add("serve.requests", len(batch))
+        obs.gauge("serve.queue_depth", self.requests.depth())
+        obs.gauge("serve.inflight", self.inflight)
+        if self.stats is not None:
+            snap = self.stats.snapshot()
+            obs.gauge("serve.p50_ms", snap["p50_ms"])
+            obs.gauge("serve.p99_ms", snap["p99_ms"])
+        if self.monitor is not None:
+            self.monitor.evaluate()

@@ -7,6 +7,9 @@ closed-loop client load, print one JSON stats line.
         [--kinds predict,shap] [--buckets 8,32,128]
         [--registry DIR] [--json]
         [--hold] [--hold-timeout S] [--drain-deadline S]
+        [--slo] [--slo-p99-ms MS]
+        [--fleet W] [--workdir DIR] [--rolling-restart]
+        [--worker --socket PATH [--device D]]
 
 Without ``--ledger`` it fits + registers the study's two SHAP configs
 (config.SHAP_CONFIGS) on synthetic data; with it, every config the
@@ -21,10 +24,25 @@ print one ``DRAIN_ACCT {json}`` line. Exit 0 iff the drain completed
 within the deadline and every client request was accounted for
 (completed, or retriably rejected) — zero silent drops.
 
-The JAX package's ``--metrics-port``, ``--slo`` and ``--slo-p99-ms``
-(telemetry) and ``--fleet``, ``--workdir``, ``--rolling-restart``,
-``--worker`` and ``--socket`` (the multi-process fleet) are rejected
-with the queue of ROADMAP.md that brings them.
+``--slo`` arms the SLO monitor: declared objectives (``--slo-p99-ms``)
+evaluated as multi-window burn rates that shed load at admission on a
+breach (obs/slo.py).
+
+``--fleet W`` fits + persists the registry (under ``--workdir`` when no
+``--registry`` is given), spawns W worker processes over it
+(serve/fleet.Fleet, each on ``cuda`` unless ``serve_main`` is given
+another ``device``), stands the health-gated hedging router up
+(serve/router.FleetRouter) and drives the same ``sustained_load``
+through the router; ``--slo`` then declares the fleet's objectives (the
+router's monitor accounts and deprioritizes, the workers' shed). With
+``--rolling-restart`` the load is followed by a zero-drop rolling restart
+walk. ``--worker --socket PATH --registry DIR`` is the child half the
+fleet spawns: load the persisted registry (no fitting), warm, answer
+wire-protocol frames until drained; ``--device`` (a worker's only) is
+where it runs.
+
+The JAX package's ``--metrics-port`` (the exporter) is rejected with the
+queue of ROADMAP.md that brings it.
 """
 
 import json
@@ -35,14 +53,7 @@ import time
 # Options of the JAX package's ``serve`` that the port does not have yet,
 # and what brings them (ROADMAP.md, queue A).
 _LATER = {
-    "--metrics-port": "the port's telemetry (ROADMAP.md §A 6)",
-    "--slo": "the port's telemetry (ROADMAP.md §A 6)",
-    "--slo-p99-ms": "the port's telemetry (ROADMAP.md §A 6)",
-    "--fleet": "the fleet (ROADMAP.md §A 5)",
-    "--workdir": "the fleet (ROADMAP.md §A 5)",
-    "--rolling-restart": "the fleet (ROADMAP.md §A 5)",
-    "--worker": "the fleet (ROADMAP.md §A 5)",
-    "--socket": "the fleet (ROADMAP.md §A 5)",
+    "--metrics-port": "the port's metrics exporter (ROADMAP.md §A 6)",
 }
 
 
@@ -160,6 +171,9 @@ def _parse(args):
         "kinds": ("predict",), "buckets": None,
         "registry": None, "json": False,
         "hold": False, "hold_timeout": 120.0, "drain_deadline": 10.0,
+        "slo": False, "slo_p99_ms": 50.0,
+        "worker": False, "socket": None, "device": None,
+        "fleet": None, "workdir": None, "rolling_restart": False,
     }
     it = iter(args)
     for a in it:
@@ -167,15 +181,21 @@ def _parse(args):
             opts["json"] = True
         elif a == "--hold":
             opts["hold"] = True
-        elif a in ("--hold-timeout", "--drain-deadline"):
+        elif a == "--slo":
+            opts["slo"] = True
+        elif a == "--worker":
+            opts["worker"] = True
+        elif a == "--rolling-restart":
+            opts["rolling_restart"] = True
+        elif a in ("--hold-timeout", "--drain-deadline", "--slo-p99-ms"):
             opts[a[2:].replace("-", "_")] = float(next(it))
         elif a in ("--synth", "--trees", "--max-depth", "--limit",
-                   "--requests", "--rows", "--clients"):
+                   "--requests", "--rows", "--clients", "--fleet"):
             opts[a[2:].replace("-", "_")] = int(next(it))
         elif a == "--ledger":
             opts["ledger"] = next(it)
-        elif a == "--registry":
-            opts["registry"] = next(it)
+        elif a in ("--registry", "--socket", "--workdir", "--device"):
+            opts[a[2:]] = next(it)
         elif a == "--kinds":
             opts["kinds"] = tuple(next(it).split(","))
         elif a == "--buckets":
@@ -185,13 +205,64 @@ def _parse(args):
             raise ValueError(f"Unrecognized serve option {a!r}" + (
                 f": not in the port yet; it comes with {later}" if later
                 else ""))
+    if opts["device"] is not None and not opts["worker"]:
+        raise ValueError("serve --device is a fleet worker's option "
+                         "(serve --worker); the serve verb runs on cuda")
     return opts
+
+
+def _fleet_main(opts, feats, registry, device):
+    """The ``--fleet W`` body: spawn the worker fleet over the persisted
+    registry on ``device``, route the sustained load through the hedging
+    router, then (optionally) walk a zero-drop rolling restart."""
+    import os
+
+    from flake16_framework_tpu_torch.obs.slo import SLOConfig
+    from flake16_framework_tpu_torch.serve.fleet import Fleet
+    from flake16_framework_tpu_torch.serve.router import FleetRouter
+
+    os.makedirs(opts["workdir"], exist_ok=True)
+    slo_p99 = opts["slo_p99_ms"] if opts["slo"] else None
+    # Without --slo the router still accounts with the defaults.
+    fleet_slo = SLOConfig(p99_ms=opts["slo_p99_ms"]) if opts["slo"] else None
+    with Fleet(registry.root, opts["fleet"], workdir=opts["workdir"],
+               buckets=opts["buckets"], slo_p99_ms=slo_p99,
+               device=device) as fleet:
+        with FleetRouter(fleet, slo=fleet_slo) as router:
+            result = sustained_load(
+                router, feats, registry.ids(),
+                n_requests=opts["requests"], rows=opts["rows"],
+                kinds=opts["kinds"], clients=opts["clients"])
+            if opts["rolling_restart"]:
+                result["rolling_restart"] = router.rolling_restart(
+                    drain_deadline_s=opts["drain_deadline"])
+            stats = router.stats()
+            result["fleet"] = {
+                "workers": opts["fleet"],
+                "pids": fleet.pids(),
+                "router": stats["router"],
+                "rps": stats["rps"],
+                "slo": stats["slo"],
+                "failover_s": router.last_failover_s,
+                "per_worker": [w["hb"].get("requests")
+                               for w in stats["workers"]],
+                "launches": [w["hb"].get("launches")
+                             for w in stats["workers"]],
+                "ready_s": [h.ready_s for h in fleet.workers],
+            }
+    return result
 
 
 def serve_main(args, device=None):
     """The verb's body; ``device`` (``cuda`` by default) is where the
-    registry fits and the service runs. Returns the exit code."""
+    registry fits and the service, or each fleet worker, runs. Returns
+    the exit code."""
     opts = _parse(args)
+
+    if opts["worker"]:
+        from flake16_framework_tpu_torch.serve.fleet import worker_main
+
+        return worker_main(opts)
 
     from flake16_framework_tpu_torch import config as cfg
     from flake16_framework_tpu_torch.serve.registry import ModelRegistry
@@ -199,6 +270,17 @@ def serve_main(args, device=None):
     from flake16_framework_tpu_torch.utils import synth
 
     feats, labels, _ = synth.make_dataset(n_tests=opts["synth"], seed=7)
+
+    if opts["fleet"]:
+        # Workers load artifacts from disk — a fleet NEEDS a persisted
+        # registry; default one under the (possibly ephemeral) workdir.
+        import os
+        import tempfile
+
+        opts["workdir"] = (opts["workdir"]
+                           or tempfile.mkdtemp(prefix="f16-fleet-"))
+        opts["registry"] = (opts["registry"]
+                            or os.path.join(opts["workdir"], "registry"))
 
     persist = opts["registry"] is not None
     registry = ModelRegistry(opts["registry"] or "serve-registry",
@@ -216,8 +298,23 @@ def serve_main(args, device=None):
                 keys, feats, labels, max_depth=opts["max_depth"],
                 tree_overrides=overrides, persist=persist)
 
+    if opts["fleet"]:
+        result = _fleet_main(opts, feats, registry, device)
+        result["device"] = str(registry.device)
+        result["models"] = registry.ids()
+        print(json.dumps(result) if opts["json"]
+              else json.dumps(result, indent=1))
+        sys.stdout.flush()
+        return 1 if result["n_errors"] else 0
+
+    slo_cfg = None
+    if opts["slo"]:
+        from flake16_framework_tpu_torch.obs.slo import SLOConfig
+
+        slo_cfg = SLOConfig(p99_ms=opts["slo_p99_ms"])
+
     with ScoringService(registry, buckets=opts["buckets"],
-                        device=registry.device) as svc:
+                        device=registry.device, slo=slo_cfg) as svc:
         if opts["hold"]:
             result = hold_until_signal(
                 svc, feats, registry.ids(), rows=opts["rows"],
@@ -229,6 +326,9 @@ def serve_main(args, device=None):
                 svc, feats, registry.ids(), n_requests=opts["requests"],
                 rows=opts["rows"], kinds=opts["kinds"],
                 clients=opts["clients"])
+        slo_summary = svc.slo_summary()
+        if slo_summary is not None:
+            result["slo"] = slo_summary
 
     result["device"] = str(registry.device)
     if registry.device.type == "cuda":

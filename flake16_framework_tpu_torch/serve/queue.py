@@ -47,19 +47,21 @@ class RetriableRejection(RequestRejected):
 
 
 class ScoreRequest:
-    """One scoring request and its completion future. (The JAX package's
-    request also carries a distributed-trace context; it comes with the
-    port's telemetry.)"""
+    """One scoring request and its completion future. ``trace`` is the
+    request's trace context (``obs.mint_trace()`` or ``obs.adopt_trace``:
+    a trace_id/span_id dict, or None when unsampled or off), carried
+    queue→batcher→dispatch so the batcher can stamp per-request spans."""
 
-    __slots__ = ("kind", "model_id", "x", "n", "t_submit",
+    __slots__ = ("kind", "model_id", "x", "n", "t_submit", "trace",
                  "_done", "_out", "_exc")
 
-    def __init__(self, model_id, x, kind="predict"):
+    def __init__(self, model_id, x, kind="predict", trace=None):
         self.model_id = model_id
         self.x = x
         self.n = int(x.shape[0])
         self.kind = kind
         self.t_submit = time.perf_counter()
+        self.trace = trace
         self._done = threading.Event()
         self._out = None
         self._exc = None

@@ -15,9 +15,13 @@ drain escalates to checkpoint-and-abort: the flush still runs, handed-off
 batches fail with a plain ServeError. Zero requests are ever silently
 dropped — each submitted future either completes or raises.
 
-Not here yet, with the port's telemetry (ROADMAP.md §A 6): the SLO
-monitor and load shedding, the metrics exporter, the perfdb bucket
-consult and the serve spans and events.
+With ``slo`` (an ``obs.slo.SLOConfig``, or True for the defaults) an
+SLO monitor watches the served latencies and errors; while its burn rate
+stands in breach, admission sheds load with a retriable rejection. That
+is all a breach does: the SHAP kernel and the device stay as they are.
+The warm span, the drain events and the manifest facts go to the
+telemetry (no-ops unless it is on). Not here yet (ROADMAP.md §A 6): the
+metrics exporter and the perfdb bucket consult.
 """
 
 import os
@@ -26,6 +30,8 @@ import time
 
 import numpy as np
 
+from flake16_framework_tpu_torch import obs
+from flake16_framework_tpu_torch.obs.slo import SLOConfig, SLOMonitor
 from flake16_framework_tpu_torch.serve.batcher import Microbatcher
 from flake16_framework_tpu_torch.serve.queue import (
     RequestQueue, RequestRejected, RetriableRejection, ScoreRequest,
@@ -85,7 +91,7 @@ class ScoringService:
     """
 
     def __init__(self, registry, *, buckets=None, max_inflight=2,
-                 queue_max=256, guard=None, device=None):
+                 queue_max=256, guard=None, device=None, slo=None):
         self.registry = registry
         self.buckets = (DEFAULT_BUCKETS if buckets is None
                         else tuple(sorted(int(b) for b in buckets)))
@@ -93,9 +99,15 @@ class ScoringService:
         self.device = self.store.device
         self.requests = RequestQueue(maxsize=queue_max)
         self.latency = LatencyStats()
+        # ``slo`` is the declared-objectives config (True = defaults,
+        # None = no SLO loop and no new hot-path work).
+        self.slo = None
+        if slo is not None and slo is not False:
+            self.slo = SLOMonitor(SLOConfig() if slo is True else slo)
         self.batcher = Microbatcher(
             self.store, self.requests, buckets=self.buckets,
-            max_inflight=max_inflight, guard=guard, stats=self.latency)
+            max_inflight=max_inflight, guard=guard, stats=self.latency,
+            monitor=self.slo)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -103,14 +115,23 @@ class ScoringService:
         """Warm every (model, kind, bucket), then start the batcher
         threads. Any warm failure propagates — an unservable registry
         must fail here, not at the first request."""
-        for model in self.registry.models():
-            self.store.warm(model, self.buckets)
+        with obs.span("serve.warm", key=f"models={len(self.registry)}"):
+            for model in self.registry.models():
+                self.store.warm(model, self.buckets)
+        obs.manifest_update(
+            verb="serve", serve_models=len(self.registry),
+            serve_buckets=list(self.buckets),
+            serve_device=str(self.device))
         self.batcher.start()
         return self
 
     def stop(self):
         self.requests.close()
         self.batcher.stop()
+
+    def slo_summary(self):
+        """The SLO rollup (None without an SLO loop)."""
+        return self.slo.summary() if self.slo is not None else None
 
     def drain(self, deadline_s=10.0):
         """Graceful drain (see module docstring): close admission, fail
@@ -122,6 +143,7 @@ class ScoringService:
         completed / rejected / aborted request counts."""
         t0 = time.perf_counter()
         done_before = self.latency.snapshot()["count"]
+        obs.event("drain", phase="begin", deadline_s=float(deadline_s))
         self.requests.close()
         queued = self.requests.drain_pending()
         rejection = RetriableRejection(
@@ -135,13 +157,17 @@ class ScoringService:
                 f"drain deadline ({deadline_s}s) exceeded; "
                 f"batch aborted before dispatch"))
         self.flush()
-        return {
+        acct = {
             "phase": "complete" if clean else "abort",
             "completed": self.latency.snapshot()["count"] - done_before,
             "rejected": len(queued),
             "aborted": aborted,
             "wall_s": round(time.perf_counter() - t0, 3),
         }
+        obs.event("drain", phase=acct["phase"],
+                  completed=acct["completed"], rejected=acct["rejected"],
+                  aborted=acct["aborted"])
+        return acct
 
     def flush(self):
         """Flush durable serve state: the registry index and the warm
@@ -154,6 +180,9 @@ class ScoringService:
             manifest_path = os.path.join(self.registry.root, MANIFEST_FILE)
             self.store.flush_manifest(
                 manifest_path, self.registry.models(), self.buckets)
+        obs.manifest_update(
+            verb="serve", serve_models=len(self.registry),
+            serve_manifest=manifest_path)
         return manifest_path
 
     def __enter__(self):
@@ -165,6 +194,14 @@ class ScoringService:
     # -- client API ------------------------------------------------------
 
     def _admit(self, model_id, x, kind):
+        if self.slo is not None and self.slo.shedding:
+            # Bounded-admission rejection: while the burn-rate breach
+            # stands, new work is refused at the door — the queue must
+            # never grow into the latency it is supposed to cure.
+            # Retriable: nothing was queued or dispatched.
+            self.slo.record_shed()
+            raise RetriableRejection(
+                "shedding load (SLO burn-rate breach); retry later")
         if kind not in KINDS:
             raise RequestRejected(f"unknown kind: {kind!r} (want {KINDS})")
         model = self.registry.get(model_id)
@@ -193,10 +230,17 @@ class ScoringService:
                 " (split client-side)")
         return model, x
 
-    def submit(self, model_id, x, kind="predict"):
-        """Admit one request; returns the :class:`ScoreRequest` future."""
+    def submit(self, model_id, x, kind="predict", trace_parent=None):
+        """Admit one request; returns the :class:`ScoreRequest` future.
+        A trace context is minted here (``F16_TRACE_SAMPLE``) and rides
+        the request to the response. ``trace_parent`` is the context a
+        fleet worker received on the wire: the request then adopts the
+        router's trace id instead of flipping a second sampling coin."""
         _, x = self._admit(model_id, x, kind)
-        return self.requests.submit(ScoreRequest(model_id, x, kind=kind))
+        trace = (obs.adopt_trace(trace_parent) if trace_parent
+                 else obs.mint_trace())
+        return self.requests.submit(
+            ScoreRequest(model_id, x, kind=kind, trace=trace))
 
     def score(self, model_id, x, kind="predict", timeout=None):
         """Synchronous submit+result."""

@@ -482,3 +482,46 @@ def test_guard_watchdog_on_the_card(device):
     x = torch.arange(8, device="cuda", dtype=torch.float32)
     out = g.call(lambda: (x * 2).sum(), label="watchdog")
     assert float(out) == 56.0 and not g.retries
+
+
+@pytest.mark.cuda
+def test_fleet_on_the_card_launches_k2_in_its_workers(tmp_path):
+    """A 2-worker fleet on the default device (``cuda``) over a persisted
+    registry of one small ET model: each worker warms on the card (one K2
+    launch a bucket), and one SHAP request through the router adds one K2
+    launch in the worker that served it, read through ``stats``; the
+    answer equals the in-process service's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from flake16_framework_tpu_torch.serve import ModelRegistry, ScoringService
+    from flake16_framework_tpu_torch.serve.fleet import Fleet
+    from flake16_framework_tpu_torch.serve.router import FleetRouter
+    from flake16_framework_tpu_torch.utils.synth import make_dataset
+
+    feats, labels, _ = make_dataset(n_tests=400, n_projects=6, seed=5)
+    registry = ModelRegistry(str(tmp_path / "registry"))
+    registry.fit_and_register(
+        ("NOD", "Flake16", "None", "SMOTE Tomek", "Extra Trees"), feats,
+        labels, max_depth=12, tree_overrides={"Extra Trees": 8})
+    mid = registry.ids()[0]
+    buckets = (8, 32)
+    with Fleet(registry.root, 2, workdir=str(tmp_path / "work"),
+               buckets=buckets, ready_timeout_s=180) as fleet:
+        # no hedge: one request, one dispatch
+        with FleetRouter(fleet, hedge_ms=60000.0) as router:
+            before = router.scrape_worker_stats()
+            assert sorted(before) == [0, 1]
+            for st in before.values():
+                assert st["device"].startswith("cuda")
+                assert st["launches"]["treeshap_unit"] == len(buckets)
+                assert st["launches"]["hist_cumsum"] == 0
+                assert st["max_memory_allocated_mb"] > 0
+            got = router.score(mid, feats[:8], kind="shap", timeout=120)
+            after = router.scrape_worker_stats()
+    grew = sum(after[i]["launches"]["treeshap_unit"]
+               - before[i]["launches"]["treeshap_unit"] for i in (0, 1))
+    assert grew == 1
+    with ScoringService(registry, buckets=buckets) as svc:
+        want = svc.score(mid, feats[:8], kind="shap", timeout=120)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
