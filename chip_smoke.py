@@ -70,6 +70,26 @@ here, then all three restart one at a time: zero client-visible errors,
 the failover windows, the survivors' answers, the respawns' re-warm
 launches and all-new pids.
 
+``metrics_path`` runs the serve phase's service once more with its
+Prometheus exporter (``metrics_port=0``), scraping ``/metrics`` every
+0.5 s through the same load: every body valid, the last request count
+the load's, device memory above 0; ``fleet_path`` scrapes the router's
+federated endpoint the same way (3 workers up, series for workers 0-2).
+``lockwatch_drill`` repeats the drain drill's child with the lock-order
+witness armed (``F16_LOCKWATCH``): its dump validates, holds the locks the
+port makes at import time and the serving locks, and has no cycle.
+``perfdb_path`` points ``F16_PERFDB`` at a fresh database, ingests the
+telemetry path's run (rows on ``cuda``, kernel rows with its launch
+counts), runs ``scores planner`` under telemetry with the empty database
+(K1 launches equal to the planner path's), records a plan padding and a
+tuned window width (64) at the RF and ET plan shape and runs it again
+(scores equal to the planner path's, more K1 launches at the narrower
+window; K1 held bitwise against its plain version on every fold-batched
+step at that width), diffs the two telemetry runs (``perf diff``), and
+builds a service under a recorded bucket ladder, which warms exactly that
+ladder (served values and K2 on the serving rows held at those sizes).
+Every other phase runs with ``F16_PERFDB=0``.
+
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
@@ -283,13 +303,13 @@ def first_fold(engine, config, fit_name, run_fit=True):
     return seen[0]
 
 
-def record_steps(engine, config, fold_batched=False):
+def record_steps(engine, config, fold_batched=False, **grow_kw):
     """K1's inputs at every BFS step of the first fold's fit of ``config``
     (a ``SweepEngine`` run cut after that fit), or with ``fold_batched``
     of the fold-batched fit of all its folds (the fused config's and the
-    plan executor's), as clones on the engine's device: [(rel, w, wy,
-    bin_t, n_nodes, n_bins), ...]. Wraps the grower's ``cum_hists`` for
-    this call only."""
+    plan executor's, with the grower's keywords ``grow_kw``), as clones
+    on the engine's device: [(rel, w, wy, bin_t, n_nodes, n_bins), ...].
+    Wraps the grower's ``cum_hists`` for this call only."""
     from flake16_framework_tpu_torch.ops import trees
 
     steps = []
@@ -303,7 +323,7 @@ def record_steps(engine, config, fold_batched=False):
     trees.cum_hists = recorder
     try:
         if fold_batched:
-            engine._fit_count_folds(config)
+            engine._fit_count_folds(config, **grow_kw)
         else:
             first_fold(engine, config, "fit_forest_hist")
     finally:
@@ -1426,7 +1446,7 @@ def run_serve_path(tmp, tj):
     return launches, report, svc, registry, feats
 
 
-def check_served_values(svc, registry, feats):
+def check_served_values(svc, registry, feats, buckets=SERVE_BUCKETS):
     """Each model, kind and bucket size: the served result against the
     direct call on the same rows — predict (``trees.predict_proba`` on
     the transformed rows) within 1e-6 absolute, SHAP against the packed
@@ -1440,7 +1460,7 @@ def check_served_values(svc, registry, feats):
 
     rows = []
     for model in registry.models():
-        for bucket in SERVE_BUCKETS:
+        for bucket in buckets:
             x = feats[:bucket]
             xp = transform(torch.from_numpy(np.ascontiguousarray(
                 x[:, list(model.cols)], dtype=np.float32)).cuda(),
@@ -1470,44 +1490,67 @@ def check_served_values(svc, registry, feats):
     return rows
 
 
-def serve_unit_report(registry, feats):
-    """K2 on the single-bucket rows (``graph_inputs``) of the ET and RF
-    models at the serving buckets' sample counts: at S = 128 on the ET
-    rows against ``unit_shap_plain`` (SHAP_TOL; two kernel runs bitwise),
-    and its ms at S = 8, 32 and 128 on both (``_cuda_ms``) against the
-    operation bound of these inputs (``unit_ops`` over the live rows) and
-    their bytes."""
-    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
-        unit_shap, unit_shap_plain,
-    )
+def _serving_rows(registry, feats, keys, n_samples):
+    """(``graph_inputs`` rows, transformed samples [n_samples, F]) of the
+    registered model of ``keys``, on the card."""
     from flake16_framework_tpu_torch.ops.preprocess import transform
     from flake16_framework_tpu_torch.ops.treeshap import graph_inputs
     from flake16_framework_tpu_torch.serve import model_id_for
 
-    out = {"check": None, "timings": []}
+    model = registry.get(model_id_for(keys))
+    rows = graph_inputs(model.forest, len(model.cols))
+    xp = transform(torch.from_numpy(np.ascontiguousarray(
+        feats[:n_samples, list(model.cols)], dtype=np.float32)).cuda(),
+        model.mu, model.wmat)
+    return rows, xp
+
+
+def check_unit_rows(registry, feats, samples):
+    """K2 on the ET model's single-bucket rows (``graph_inputs``) at each
+    sample count of ``samples`` against ``unit_shap_plain`` (SHAP_TOL;
+    two kernel runs bitwise). Returns one record a count."""
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+        unit_shap, unit_shap_plain,
+    )
+
+    keys = GRID_CONFIGS[0]
+    rows, xp = _serving_rows(registry, feats, keys, max(samples))
+    out = []
+    for s in samples:
+        x = xp[:s].contiguous()
+        got, again = unit_shap(*rows, x), unit_shap(*rows, x)
+        want = unit_shap_plain(*rows, x)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, again), f"K2 serving rows at S = {s}: "
+                 f"two runs differ")
+        err = float((got - want).abs().max())
+        ref = float(want.abs().max())
+        _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+                 f"K2 on the ET serving rows at S = {s} differs from "
+                 f"unit_shap_plain: {err} (max {ref})")
+        out.append({"config": "/".join(keys), "samples": s,
+                    "rows": rows[4].shape[0], "max_abs_err": err,
+                    "max_abs_plain": ref})
+    return out
+
+
+def serve_unit_report(registry, feats):
+    """K2 on the single-bucket rows (``graph_inputs``) of the ET and RF
+    models at the serving buckets' sample counts: at S = 128 on the ET
+    rows against ``unit_shap_plain`` (``check_unit_rows``), and its ms at
+    S = 8, 32 and 128 on both (``_cuda_ms``) against the operation bound
+    of these inputs (``unit_ops`` over the live rows) and their bytes."""
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+        unit_shap, unit_shap_plain,
+    )
+
+    out = {"check": check_unit_rows(registry, feats,
+                                    (max(SERVE_BUCKETS),))[0],
+           "timings": []}
     for keys in GRID_CONFIGS[:2]:
-        model = registry.get(model_id_for(keys))
-        rows = graph_inputs(model.forest, len(model.cols))
-        xp = transform(torch.from_numpy(np.ascontiguousarray(
-            feats[:max(SERVE_BUCKETS), list(model.cols)],
-            dtype=np.float32)).cuda(), model.mu, model.wmat)
+        rows, xp = _serving_rows(registry, feats, keys, max(SERVE_BUCKETS))
         u = rows[4]
         live = u > 0
-        if keys == GRID_CONFIGS[0]:
-            x = xp.contiguous()
-            got, again = unit_shap(*rows, x), unit_shap(*rows, x)
-            want = unit_shap_plain(*rows, x)
-            torch.cuda.synchronize()
-            _require(torch.equal(got, again), "K2 serving rows: two runs "
-                     "differ")
-            err = float((got - want).abs().max())
-            ref = float(want.abs().max())
-            _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
-                     f"K2 on the ET serving rows differs from "
-                     f"unit_shap_plain: {err} (max {ref})")
-            out["check"] = {"config": "/".join(keys), "samples": x.shape[0],
-                            "rows": u.shape[0], "max_abs_err": err,
-                            "max_abs_plain": ref}
         for s in SERVE_BUCKETS:
             x = xp[:s].contiguous()
             live_rows = tuple(t[live] for t in rows)
@@ -1536,23 +1579,24 @@ _DRAIN_ARGS = ["serve", "--hold", "--synth", str(N_TESTS), "--trees", "100",
                "--max-depth", "48", "--kinds", "predict,shap"]
 
 
-def run_drain_drill(tmp):
+def run_drain_drill(tmp, name="drill", env_extra=None):
     """``python -m flake16_framework_tpu_torch serve --hold ...`` as a
-    child process: wait for SERVE_READY, let it serve a second, SIGTERM
-    it and parse its DRAIN_ACCT line, which must show exit 0, phase
-    ``complete`` and no failed and no rejected request. Then the parent
-    reloads the child's registry: the flushed ``aot_manifest.json`` must
-    equal the reloaded store's ``warm_manifest`` (the reload-warm
-    contract)."""
+    child process (its registry ``<tmp>/<name>-registry``, ``env_extra``
+    added to its environment): wait for SERVE_READY, let it serve a
+    second, SIGTERM it and parse its DRAIN_ACCT line, which must show
+    exit 0, phase ``complete`` and no failed and no rejected request.
+    Then the parent reloads the child's registry: the flushed
+    ``aot_manifest.json`` must equal the reloaded store's
+    ``warm_manifest`` (the reload-warm contract)."""
     import signal
     import threading
 
     from flake16_framework_tpu_torch.serve import ExecutableStore, ModelRegistry
     from flake16_framework_tpu_torch.serve.store import MANIFEST_FILE
 
-    reg_dir = os.path.join(tmp, "drill-registry")
+    reg_dir = os.path.join(tmp, f"{name}-registry")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
-        os.path.abspath(__file__)))
+        os.path.abspath(__file__)), **(env_extra or {}))
     env.pop("F16_FAULT_INJECT", None)
     t0 = time.time()
     proc = subprocess.Popen(
@@ -1648,16 +1692,20 @@ def _ready_launches(handle):
 
 
 def run_fleet_path(tmp, registry, feats):
-    """``serve --fleet 3`` on the card, as the CLI runs it: the serve
-    phase's persisted registry behind ``FLEET_WORKERS`` workers on cuda,
-    the router in front, and ``sustained_load`` through it (1024 requests
-    of 16 rows, 8 clients, predict and SHAP in turn). The parent's launch
-    counts are set to 0 just before the fleet starts and read just after
-    the load (the fleet fits nothing: K1 0); the workers' are read
-    through ``stats`` (each starts at 0: its warm, 9 K2 launches, and its
-    share of the load). Then the fleet answers a fixed set of rows, one
-    request at a time, for ``check_fleet_values``. Returns (launches,
-    report, answers)."""
+    """``serve --fleet 3 --metrics-port 0`` on the card, as the CLI runs
+    it: the serve phase's persisted registry behind ``FLEET_WORKERS``
+    workers on cuda, the router in front with its federated exporter
+    (``register_fleet_sources``), and ``sustained_load`` through it (1024
+    requests of 16 rows, 8 clients, predict and SHAP in turn) while
+    ``/metrics`` is scraped every 0.5 s (``_scraping``; the bodies are
+    checked by ``check_fleet_metrics``). The parent's launch counts are
+    set to 0 just before the fleet starts and read just after the load
+    (the fleet fits nothing: K1 0); the workers' are read through
+    ``stats`` (each starts at 0: its warm, 9 K2 launches, and its share
+    of the load). Then the fleet answers a fixed set of rows, one request
+    at a time, for ``check_fleet_values``. Returns (launches, report,
+    answers)."""
+    from flake16_framework_tpu_torch.obs import metrics
     from flake16_framework_tpu_torch.serve.cli import sustained_load
     from flake16_framework_tpu_torch.serve.fleet import Fleet
     from flake16_framework_tpu_torch.serve.router import FleetRouter
@@ -1676,10 +1724,16 @@ def run_fleet_path(tmp, registry, feats):
             warm = router.scrape_worker_stats()
             smi_warm = _smi_apps()
             clock = _KindClock(router)
-            load = sustained_load(clock, feats, ids,
-                                  n_requests=SERVE_REQUESTS, rows=SERVE_ROWS,
-                                  kinds=("predict", "shap"),
-                                  clients=SERVE_CLIENTS)
+            reg = metrics.register_fleet_sources(
+                metrics.register_process_sources(metrics.MetricsRegistry()),
+                router)
+            with metrics.MetricsServer(reg, port=0) as server:
+                with _scraping(server.port) as scraped:
+                    load = sustained_load(
+                        clock, feats, ids, n_requests=SERVE_REQUESTS,
+                        rows=SERVE_ROWS, kinds=("predict", "shap"),
+                        clients=SERVE_CLIENTS)
+                scraped["last"] = _scrape(server.port)
             after = router.scrape_worker_stats()
             smi_load = _smi_apps()
             parent = _read_counts()
@@ -1719,6 +1773,7 @@ def run_fleet_path(tmp, registry, feats):
         ("before", smi_before), ("warm", smi_warm), ("load", smi_load))}
     report = {"workers": workers, "start_s": start_s, "load": load,
               "by_kind": clock.by_kind(load["wall_s"]),
+              "metrics": check_fleet_metrics(scraped, load),
               "router": stats["router"], "parent_launches": parent,
               "smi_apps": {"before": smi_before, "warm": smi_warm,
                            "load": smi_load},
@@ -1938,6 +1993,13 @@ def print_fleet(fleet_rep, fleet_launches, drill, smi):
           f"{json.dumps(fleet_rep['smi_total_mib'])} MiB, a worker "
           f"{json.dumps(fleet_rep['smi_mib_per_worker'])} MiB",
           flush=True)
+    fm = fleet_rep["metrics"]
+    print(f"fleet metrics ({smi}): {fm['scrapes']} scrapes of "
+          f"{fm['series']} series, all valid (mean "
+          f"{fm['scrape_ms_mean']:.2f} ms, max {fm['scrape_ms_max']:.2f} ms a"
+          f" scrape); workers up {FLEET_WORKERS}, router requests_total "
+          f"{fm['fleet_requests_total']:.0f}, worker requests (heartbeats) "
+          f"{json.dumps(fm['worker_requests'])}", flush=True)
     for kind, k in fleet_rep["by_kind"].items():
         print(f"fleet {kind} ({smi}): {k['requests']} requests, "
               f"{k['rps']:.1f} rps, p50 {k['p50_ms']:.3f} ms, p99 "
@@ -2297,6 +2359,405 @@ def profile_config(tests_file, config, wall_s):
     }
 
 
+# -- the performance database, the metrics exporter, the witness --------
+
+# The tuned window width and warm ladder the ``perfdb_path`` phase
+# records: a width other than the default 128 and inside K1's shared
+# memory (``kernels/hist.max_window``: 226 at 64 bins).
+TUNED_NODE_BATCH = 64
+RECORDED_BUCKETS = (16, 64)
+
+
+def _scrape(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10.0) as resp:
+        return resp.read().decode()
+
+
+@contextlib.contextmanager
+def _scraping(port, period_s=0.5):
+    """GET ``/metrics`` every ``period_s`` on a thread for the block;
+    yields {"bodies": [...], "walls_s": [...], "errors": [...]}, each
+    body to be held valid by the caller."""
+    import threading
+
+    out = {"bodies": [], "walls_s": [], "errors": []}
+    stop = threading.Event()
+
+    def loop():
+        while True:
+            t0 = time.perf_counter()
+            try:
+                out["bodies"].append(_scrape(port))
+            except Exception as e:  # noqa: BLE001 - reported, then failed
+                out["errors"].append(repr(e))
+            out["walls_s"].append(time.perf_counter() - t0)
+            if stop.wait(period_s):
+                return
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(30)
+
+
+def _samples(body, name):
+    """{label set ("" for none): value} of one series in a body."""
+    out = {}
+    for line in body.splitlines():
+        if line.startswith((name + " ", name + "{")):
+            key, _, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def _check_bodies(scraped, what):
+    from flake16_framework_tpu_torch.obs.metrics import validate_exposition
+
+    bodies = scraped["bodies"] + [scraped["last"]]
+    bad = [p for b in bodies for p in validate_exposition(b)]
+    _require(not scraped["errors"] and not bad and len(bodies) >= 2,
+             f"{what}: {len(bodies)} scrapes, errors {scraped['errors'][:3]}"
+             f", invalid {bad[:3]}")
+    return {"scrapes": len(bodies),
+            "scrape_ms_max": 1e3 * max(scraped["walls_s"]),
+            "scrape_ms_mean": 1e3 * sum(scraped["walls_s"])
+            / len(scraped["walls_s"]),
+            "series": len({ln.split()[2] for ln in scraped["last"]
+                           .splitlines() if ln.startswith("# TYPE ")})}
+
+
+def check_fleet_metrics(scraped, load):
+    """The federated endpoint's bodies, scraped during ``fleet_path``'s
+    load and once after it: every one valid, the last with
+    ``f16_fleet_workers_up`` 3, per-worker series for workers 0-2 (each
+    worker's request count from its last heartbeat, which may lag the
+    load's end) and the router's request count equal to the load's."""
+    rep = _check_bodies(scraped, "fleet metrics")
+    last = scraped["last"]
+    labels = [f'{{worker="{i}"}}' for i in range(FLEET_WORKERS)]
+    up = _samples(last, "f16_fleet_worker_up")
+    served = _samples(last, "f16_fleet_worker_requests_total")
+    total = _samples(last, "f16_fleet_requests_total")
+    _require(_samples(last, "f16_fleet_workers_up") == {"": FLEET_WORKERS}
+             and up == {k: 1.0 for k in labels}
+             and sorted(served) == labels and min(served.values()) > 0
+             and total == {"": float(load["completed"])},
+             f"fleet metrics: workers up {up}, served {served}, router "
+             f"total {total} of {load['completed']}")
+    rep["worker_requests"] = served
+    rep["fleet_requests_total"] = total[""]
+    return rep
+
+
+def run_metrics_path(registry, feats):
+    """``serve_path``'s service (its registry, buckets and load) with
+    ``metrics_port=0``, ``/metrics`` scraped every 0.5 s during
+    ``sustained_load`` and once after it: every body valid, the last
+    ``f16_serve_requests_total`` the load's completed count and
+    ``f16_device_mem_peak_mb`` above 0. The launch counts are set to 0
+    just before the service starts and read after the load (K2: 9 at
+    warm, then one a SHAP microbatch). Returns (launches, report)."""
+    from flake16_framework_tpu_torch.serve import ScoringService
+    from flake16_framework_tpu_torch.serve.cli import sustained_load
+
+    _reset_counts()
+    svc = ScoringService(registry, buckets=SERVE_BUCKETS, metrics_port=0)
+    svc.start()
+    try:
+        port = svc.metrics.port
+        with _scraping(port) as scraped:
+            load = sustained_load(svc, feats, registry.ids(),
+                                  n_requests=SERVE_REQUESTS, rows=SERVE_ROWS,
+                                  kinds=("predict", "shap"),
+                                  clients=SERVE_CLIENTS)
+        scraped["last"] = _scrape(port)
+        launches = _read_counts()
+    finally:
+        svc.stop()
+    _require(load["n_errors"] == 0 and load["completed"] == SERVE_REQUESTS,
+             f"metrics path load: {load['completed']} completed, errors "
+             f"{load['errors']}")
+    rep = _check_bodies(scraped, "serve metrics")
+    last = scraped["last"]
+    done = _samples(last, "f16_serve_requests_total")
+    mem = _samples(last, "f16_device_mem_peak_mb")
+    _require(done == {"": float(load["completed"])}
+             and mem.get("", 0.0) > 0,
+             f"serve metrics: requests_total {done}, device memory {mem}")
+    _require(launches["treeshap_unit"] > len(registry) * len(SERVE_BUCKETS)
+             and launches["hist_cumsum"] == 0,
+             f"metrics path launches {launches}")
+    rep.update(port=port, load=load, device_mem_peak_mb=mem[""],
+               requests_total=done[""])
+    return launches, rep
+
+
+def check_tuned_steps(tests_file):
+    """K1 on every fold-batched BFS step of the RF member grown at the
+    tuned window width (``TUNED_NODE_BATCH``, the keyword ``run_plan``
+    hands the grower under ``perfdb_path``'s tuned row): every window that
+    wide, each step's output bitwise equal to the plain version's and to
+    a second run's."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    config = MAIN_CONFIGS[0]
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    steps = record_steps(engine, config, fold_batched=True,
+                         node_batch=TUNED_NODE_BATCH)
+    _require(steps and {s[4] for s in steps} == {TUNED_NODE_BATCH},
+             f"tuned steps: windows {sorted({s[4] for s in steps})}")
+    for s in steps:
+        got, again = cum_hists(*s), cum_hists(*s)
+        want = cum_hists_plain(*s)
+        _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"hist_cumsum differs from plain on a fold-batched step "
+                 f"of {config} at W = {TUNED_NODE_BATCH}")
+        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"hist_cumsum: two runs differ on a fold-batched step of "
+                 f"{config} at W = {TUNED_NODE_BATCH}")
+        del got, again, want
+    return {"config": "/".join(config), "steps": len(steps),
+            "window": TUNED_NODE_BATCH, "trees": int(steps[0][0].shape[0]),
+            "groups": int(steps[0][3].shape[0])}
+
+
+def _planner_run(tmp, tj, name, configs, want):
+    """``scores planner`` on ``configs`` with telemetry on (its run
+    directory under ``tmp``), the launch counts set to 0 just before and
+    read just after (``_run_scores``); its scores must equal ``want``'s
+    (v[2:] bitwise). Returns (launches, wall, run directory)."""
+    from flake16_framework_tpu_torch import obs
+
+    out_file = os.path.join(tmp, f"scores-{name}.pkl")
+    run_dir = obs.configure(root=os.path.join(tmp, f"{name}-telemetry"),
+                            heartbeat_s=0)
+    try:
+        t0 = time.time()
+        _, launches, _, _, _ = _run_scores(tj, out_file, configs,
+                                           planner=True)
+        wall = time.time() - t0
+    finally:
+        obs.shutdown()
+    with open(out_file, "rb") as fd:
+        got = pickle.load(fd)
+    for k in configs:
+        _require(pickle.dumps(got[k][2:]) == pickle.dumps(want[k][2:]),
+                 f"perfdb path ({name}): {k} differs from the planner path")
+    return launches, wall, run_dir
+
+
+def run_perfdb_path(tmp, tj, tel, tel_launches, planner_launches, registry,
+                    feats):
+    """The performance database on the card, in a fresh file
+    (``F16_PERFDB``): ``perf ingest`` of ``telemetry_path``'s run (rows on
+    ``cuda``, kernel rows with that run's launches); ``scores planner``
+    on the planner path's configs under telemetry with the empty
+    database (K1 launches equal to the planner path's), then, under a
+    recorded ``plan_pad_to`` and a tuned window width
+    (``TUNED_NODE_BATCH``) at the RF and ET plan shape, once more (launch
+    counts set to 0 just before each run, read just after): scores
+    bitwise equal to the planner path's pickle, a K1 count other than its
+    own; K1 held bitwise against its plain version on every step of the
+    RF member at that width (``check_tuned_steps``); ``perf diff`` of the
+    two runs; and a service built without buckets under a recorded
+    ``serve_buckets`` row, which warms exactly that ladder, its served
+    values held against the direct calls at those sizes and K2 against
+    its plain version on the serving rows at those sample counts.
+    Returns (launches by sub-path, report)."""
+    from flake16_framework_tpu_torch.obs import perf_diff, perfdb
+    from flake16_framework_tpu_torch.parallel import planner
+    from flake16_framework_tpu_torch.serve import ScoringService
+    from flake16_framework_tpu_torch.serve.service import (
+        DEFAULT_BUCKETS, resolve_buckets,
+    )
+
+    db = os.path.join(tmp, "perfdb.jsonl")
+    saved = os.environ.get(perfdb.DB_ENV)
+    os.environ[perfdb.DB_ENV] = db
+    try:
+        perf_diff.perf_main(["ingest", tel["run_dir"]], out=io.StringIO())
+        rows = perfdb.load(db)
+        kern = {r["kernel"]: r["metrics"]["n"] for r in rows
+                if r["kernel"].startswith("kernel.")}
+        _require(rows and {r["backend"] for r in rows} == {"cuda"}
+                 and kern == {"kernel.hist_cumsum": tel_launches[
+                     "hist_cumsum"], "kernel.treeshap_unit": tel_launches[
+                     "treeshap_unit"]},
+                 f"perf ingest: backends {sorted({r['backend'] for r in rows})}"
+                 f", kernel rows {kern} against {tel_launches}")
+        configs = MAIN_CONFIGS + DT_CONFIGS
+        with open(os.path.join(tmp, "scores-planner.pkl"), "rb") as fd:
+            want = pickle.load(fd)
+        untuned, untuned_wall, untuned_run = _planner_run(
+            tmp, tj, "untuned", configs, want)
+        _require(untuned == planner_launches,
+                 f"perfdb path: untuned launches {untuned} against the "
+                 f"planner path's {planner_launches}")
+        shape = planner.plan_shape("Flake16", MAIN_CONFIGS[0][4], n=N_TESTS,
+                                   n_folds=10)
+        sig = perfdb.shape_sig(shape)
+        perfdb.record_tuned("cuda", sig, "fit", {"plan_pad_to": 2},
+                            {"fit_s": 1.0})
+        for keys in MAIN_CONFIGS:
+            _require(planner.plan_shape(keys[1], keys[4], n=N_TESTS,
+                                        n_folds=10) == shape, "plan shapes")
+            perfdb.record_tuned(
+                "cuda", sig, perfdb.model_kernel(keys[4]),
+                {"F16_HIST_NODE_BATCH": str(TUNED_NODE_BATCH)},
+                {"fit_s": 1.0})
+            _require(perfdb.tuned_fit_overrides(
+                "cuda", shape, model=keys[4]) == {
+                    "node_batch": TUNED_NODE_BATCH}, "tuned override")
+        launches, wall, run_dir = _planner_run(tmp, tj, "tuned", configs,
+                                               want)
+        _require(launches["hist_cumsum"] > planner_launches["hist_cumsum"],
+                 f"perfdb path: K1 {launches} at width {TUNED_NODE_BATCH} "
+                 f"against the planner path's {planner_launches}")
+        steps = check_tuned_steps(tj)
+        n_before = len(perfdb.load(db))
+        perf_diff.perf_main(["ingest", run_dir], out=io.StringIO())
+        tuned = {r["kernel"]: r["metrics"] for r in perfdb.load(db)[n_before:]}
+        _require(tuned["kernel.hist_cumsum"]["n"] == launches["hist_cumsum"],
+                 f"tuned run's kernel row {tuned.get('kernel.hist_cumsum')}")
+        buf = io.StringIO()
+        diff = perf_diff.perf_main(["diff", untuned_run, run_dir,
+                                    "--top", "8"], out=buf)
+        k1 = [e for e in diff["entries"]
+              if (e["kernel"], e["metric"]) == ("kernel.hist_cumsum", "n")]
+        _require(len(k1) == 1 and k1[0]["a"] == untuned["hist_cumsum"]
+                 and k1[0]["b"] == launches["hist_cumsum"],
+                 f"perf diff of the planner runs: {diff['entries'][:4]}")
+
+        perfdb.record_tuned("cuda", "serve", "serve",
+                            {"serve_buckets": list(RECORDED_BUCKETS)},
+                            {"p99_ms": 1.0})
+        _reset_counts()
+        svc = ScoringService(registry)
+        svc.start()
+        try:
+            warmed = _read_counts()
+            values = check_served_values(svc, registry, feats,
+                                         buckets=RECORDED_BUCKETS)
+        finally:
+            svc.stop()
+        _require(svc.buckets == RECORDED_BUCKETS
+                 and warmed == {"hist_cumsum": 0, "treeshap_unit":
+                                len(registry) * len(RECORDED_BUCKETS)},
+                 f"recorded buckets: {svc.buckets}, warm launches {warmed}")
+        unit_rows = check_unit_rows(registry, feats, RECORDED_BUCKETS)
+        os.environ[perfdb.DB_ENV] = os.path.join(tmp, "absent.jsonl")
+        _require(resolve_buckets(None, "cuda") == DEFAULT_BUCKETS,
+                 "bucket fall-through")
+    finally:
+        if saved is None:
+            os.environ.pop(perfdb.DB_ENV, None)
+        else:
+            os.environ[perfdb.DB_ENV] = saved
+    return {"perfdb_planner_untuned": untuned, "perfdb_planner": launches,
+            "perfdb_serve": warmed}, {
+        "rows_ingested": len(rows), "kernel_rows": kern,
+        "tuned_node_batch": TUNED_NODE_BATCH, "tuned_wall_s": wall,
+        "untuned_wall_s": untuned_wall, "untuned_launches": untuned,
+        "tuned_launches": launches, "planner_launches": planner_launches,
+        "tuned_steps": steps,
+        "diff_top": buf.getvalue().splitlines()[:11],
+        "serve_buckets": list(svc.buckets), "serve_warm_launches": warmed,
+        "serve_values": values, "unit_rows": unit_rows}
+
+
+def run_lockwatch_drill(tmp, plain):
+    """The drain drill's child once more with ``F16_LOCKWATCH=<file>``:
+    its dump must validate as the witness's document, hold the port's
+    import-time locks (``kernels/build.py``, ``obs/core.py``) and the
+    serving locks, and reconcile against an empty static model with no
+    cycle. ``plain`` is the drill without the witness, from this call."""
+    from flake16_framework_tpu_torch.obs import lockwatch, schema
+
+    path = os.path.join(tmp, "lockwatch.json")
+    rep = run_drain_drill(tmp, name="lockwatch",
+                          env_extra={lockwatch.ENV_VAR: path})
+    with open(path) as fd:
+        dump = json.load(fd)
+    root = os.path.dirname(os.path.abspath(__file__))
+    rec = lockwatch.reconcile(dump, {"locks": {}, "edges": []}, root=root)
+    sites = {os.path.relpath(s.rpartition(":")[0], root) for s in dump["locks"]}
+
+    def rel(site):
+        path, _, line = site.rpartition(":")
+        return f"{os.path.relpath(path, root)}:{line}"
+
+    want = {os.path.join("flake16_framework_tpu_torch", m) for m in (
+        "kernels/build.py", "obs/core.py", "serve/batcher.py",
+        "serve/queue.py", "serve/service.py")}
+    _require(dump.get("schema") == schema.LOCKWATCH_SCHEMA
+             and want <= sites and dump["edges"]
+             and rec["ok"] and rec["cycle"] is None,
+             f"lockwatch dump: schema {dump.get('schema')}, missing "
+             f"{sorted(want - sites)}, {len(dump['edges'])} edges, "
+             f"reconcile {json.dumps(rec)[:300]}")
+    return {"locks": len(dump["locks"]), "edges": len(dump["edges"]),
+            "acquire_edges_total": sum(e[2] for e in dump["edges"]),
+            "edge_sites": [[rel(a), rel(b), n] for a, b, n in dump["edges"]],
+            "foreign_releases": dump["foreign_releases"],
+            "reconcile": rec, "wall_s": rep["wall_s"],
+            "ready_s": rep["ready_s"], "counts": rep["counts"],
+            "plain_wall_s": plain["wall_s"],
+            "plain_ready_s": plain["ready_s"]}
+
+
+def print_new_phases(met, serve_load, pdb, lw, smi):
+    ml = met["load"]
+    print(f"metrics path ({smi}): {met['scrapes']} scrapes of "
+          f"{met['series']} series, all valid (mean "
+          f"{met['scrape_ms_mean']:.2f} ms, max {met['scrape_ms_max']:.2f} "
+          f"ms a scrape); requests_total {met['requests_total']:.0f} == "
+          f"completed, device memory peak {met['device_mem_peak_mb']:.1f} "
+          f"MB; scraped {ml['rps']} rps, p99 {ml['p99_ms']} ms against "
+          f"serve_path's {serve_load['rps']} rps, p99 "
+          f"{serve_load['p99_ms']} ms", flush=True)
+    print(f"perfdb path ({smi}): ingested {pdb['rows_ingested']} rows "
+          f"(backend cuda), kernel rows {json.dumps(pdb['kernel_rows'])}; "
+          f"scores planner at node_batch {pdb['tuned_node_batch']}: "
+          f"{pdb['tuned_wall_s']:.2f} s, launches "
+          f"{json.dumps(pdb['tuned_launches'])} against "
+          f"{json.dumps(pdb['untuned_launches'])} in "
+          f"{pdb['untuned_wall_s']:.2f} s untuned (the planner path's "
+          f"{json.dumps(pdb['planner_launches'])}), scores == planner path; "
+          f"recorded buckets {pdb['serve_buckets']} warmed with "
+          f"{json.dumps(pdb['serve_warm_launches'])}", flush=True)
+    ts = pdb["tuned_steps"]
+    print(f"hist_cumsum fold-batched steps {ts['config']} at W = "
+          f"{ts['window']} ({ts['trees']} trees, {ts['groups']} groups): "
+          f"{ts['steps']} steps, bitwise == plain and repeatable on every "
+          f"step", flush=True)
+    worst = {k: max(r[k] for r in pdb["serve_values"]) for k in (
+        "predict_max_abs_err", "shap_max_abs_err", "local_accuracy_max_err")}
+    print(f"perfdb path served values at buckets {pdb['serve_buckets']}: "
+          f"{json.dumps(worst)}; treeshap_unit serving rows "
+          + ", ".join(f"S = {r['samples']} err {r['max_abs_err']:.3g} (max "
+                      f"{r['max_abs_plain']:.3g})" for r in pdb["unit_rows"])
+          + " against unit_shap_plain", flush=True)
+    for line in pdb["diff_top"]:
+        print(f"perf diff: {line}", flush=True)
+    print(f"lockwatch drill ({smi}): {lw['locks']} lock sites, "
+          f"{lw['edges']} order edges ({lw['acquire_edges_total']} nested "
+          f"acquisitions: {json.dumps(lw['edge_sites'])}), no cycle; child "
+          f"wall {lw['wall_s']:.2f} s "
+          f"(ready {lw['ready_s']:.2f} s) against {lw['plain_wall_s']:.2f} s"
+          f" (ready {lw['plain_ready_s']:.2f} s) without the witness; "
+          f"requests {json.dumps(lw['counts'])}", flush=True)
+
+
 def print_telemetry(tel, launches, smi):
     sums, prof = tel["span_launches"], tel["profiles"]
     print(f"telemetry path ({smi}): child {tel['child_s']:.1f} s, scores == "
@@ -2325,6 +2786,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # No performance database outside ``perfdb_path`` (which points it at
+    # a fresh file): a row left in the checkout's default file would
+    # change the other phases' windows, ladders and launch counts. The
+    # drills' and the fleet's children inherit the setting.
+    os.environ["F16_PERFDB"] = "0"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2552,8 +3018,17 @@ def main():
             lap("serve_checks")
         finally:
             svc.stop()
+        metrics_launches, met = run_metrics_path(serve_reg, serve_feats)
+        lap("metrics_path")
         serve["drain_drill"] = run_drain_drill(tmp)
         lap("serve_drain_drill")
+        lw = run_lockwatch_drill(tmp, serve["drain_drill"])
+        lap("lockwatch_drill")
+        perfdb_launches, pdb = run_perfdb_path(
+            tmp, tj, tel, tel_launches, planner_launches, serve_reg,
+            serve_feats)
+        lap("perfdb_path")
+        print_new_phases(met, serve["load"], pdb, lw, smi)
         fleet_launches, fleet_rep, fleet_answers = run_fleet_path(
             tmp, serve_reg, serve_feats)
         fleet_rep["values"] = check_fleet_values(fleet_answers, serve_reg,
@@ -2638,7 +3113,8 @@ def main():
              "lopo": lopo_launches,
              "shap": shap_launches, "shap_grid": grid_launches,
              "serve": serve_launches, "fleet": fleet_launches,
-             "kill_drill_resumed_child": kill["resumed_child_launches"]}
+             "kill_drill_resumed_child": kill["resumed_child_launches"],
+             "metrics": metrics_launches, **perfdb_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
     kernels = {"kernels": [{k: kern[k] for k in (
@@ -2661,6 +3137,8 @@ def main():
               "shap_grid_modes": grid_modes, "treeshap_unit_s64": k2_grid,
               "shap_grid_explain_profiles": explains, "serve_path": serve,
               "fleet_path": fleet_rep, "fleet_drill": drill,
+              "metrics_path": met, "perfdb_path": pdb,
+              "lockwatch_drill": lw,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,
               "cuda": torch.version.cuda}

@@ -12,10 +12,16 @@ CUDA kernels carry the device work: the histogram step of the tree grower
 The verbs (``__main__``): ``scores`` (all 216 configs; ``lopo``,
 ``planner``, ``fused``, ``dispatch=N``), ``resume``, ``shap`` (the paper's
 two configs, or ``grid|interventional|interaction`` over the whole grid),
-``figures`` and ``serve`` (the scoring service in one process, or a fleet
-of worker processes behind a router, ``serve/``). ``obs/`` holds the
-telemetry the serving stack stands on: the event sink, the flight ring
-and the SLO monitor.
+``figures``, ``serve`` (the scoring service in one process, or a fleet
+of worker processes behind a router, ``serve/``), ``report``, ``trace``
+and ``perf``. ``obs/`` holds the telemetry: the event sink, the flight
+ring, the SLO monitor, the performance database, the metrics exporter
+and the lock-order witness.
 """
+
+# obs first: with F16_LOCKWATCH set it arms the lock-order witness, which
+# has to patch the lock factories before any module of the package
+# creates a lock at import time (kernels/build.COUNT_LOCK, obs/core).
+from flake16_framework_tpu_torch import obs as _obs  # noqa: F401
 
 __version__ = "0.1.0"

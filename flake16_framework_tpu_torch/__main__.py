@@ -26,7 +26,22 @@ fault events, ``serve`` its own. ``... report [RUN_DIR] [--json]
 [--attrib] [--flight]`` summarizes a run (the newest under the root by
 default; ``--attrib`` ranks configs by wall with their stages and kernel
 launches), and ``... trace [RUN_DIR] [--out FILE]`` (or ``trace --fleet
-[ROOT]``) converts it into Chrome-trace JSON."""
+[ROOT]``) converts it into Chrome-trace JSON.
+
+``... perf backfill|ingest|diff|sentinel|lookup`` is the performance
+database (``obs/perfdb.py``, ``obs/perf_diff.py``; the path is
+``--db PATH``, else ``F16_PERFDB``, else ``_scratch/perfdb.jsonl``):
+``backfill`` ingests the committed ``BENCH_r*.json`` trajectory,
+``ingest PATH... [--round TAG]`` adds bench results, telemetry run dirs
+(this package's rows carry its kernels' launches) or audit documents,
+``diff A B [--json] [--top N] [--perfetto FILE]`` joins two rounds or
+runs per kernel/stage and ranks the deltas, ``sentinel [--json]
+[--strict] [--threshold PCT]`` flags step-changes over the committed
+trajectory, and ``lookup BACKEND SHAPE [KERNEL] [--json]`` prints the
+best-known knob row that the planner (``plan_pad_to``), the plan
+executor (the hist grower's window width) and ``serve`` (its warm
+buckets) consult. Like ``report`` and ``trace``, it starts no telemetry
+run."""
 
 import os
 import sys
@@ -81,7 +96,7 @@ def _shap(args):
 
 
 _COMMANDS = ("scores", "resume", "shap", "figures", "serve", "report",
-             "trace")
+             "trace", "perf")
 
 
 def main(argv=None):
@@ -103,6 +118,11 @@ def main(argv=None):
         from flake16_framework_tpu_torch.obs.trace import trace_main
 
         trace_main(args)
+        return
+    if command == "perf":
+        from flake16_framework_tpu_torch.obs.perf_diff import perf_main
+
+        perf_main(args)
         return
     obs.configure_from_env()
     if command == "serve":

@@ -43,6 +43,15 @@ def smem_bytes(n_nodes, n_bins):
     return GROUP * n_nodes * n_bins * 4 + (n_nodes + 15) // 16 * 16 + 16
 
 
+def max_window(n_bins):
+    """The widest window (nodes) whose histogram fits a block's shared
+    memory at ``n_bins`` bins: the bound on the grower's window width."""
+    n_nodes = _SMEM_LIMIT // (GROUP * n_bins * 4)
+    while n_nodes > 0 and smem_bytes(n_nodes, n_bins) > _SMEM_LIMIT:
+        n_nodes -= 1
+    return n_nodes
+
+
 def _groups(bin_t):
     """``bin_t`` as [G, F, N] (a [F, N] tensor is one group)."""
     return bin_t[None] if bin_t.dim() == 2 else bin_t

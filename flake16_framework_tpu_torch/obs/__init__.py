@@ -1,19 +1,30 @@
 """obs — the port's telemetry: spans, counters/gauges, the JSONL event
 sink, run manifests, heartbeat and the ``torch.profiler`` hook
 (``core``), the crash-surviving flight ring (``flight``), the SLO
-monitor (``slo``), and the ``report`` and ``trace`` verbs that read a
-run back (``report``, ``trace``), each in the JAX package's formats
-(``schema``).
+monitor (``slo``), the ``report`` and ``trace`` verbs that read a run
+back (``report``, ``trace``), the performance database and the ``perf``
+verb (``perfdb``, ``perf_diff``), the live metrics exporter
+(``metrics``) and the lock-order witness (``lockwatch``), each in the
+JAX package's formats (``schema``).
 
 Off unless ``F16_TELEMETRY`` is set (``1`` or a root directory; the
 command line reads it at its entry): every call here is then a single
 ``is None`` check, so instrumentation lives directly in the sweep, the
 SHAP verbs, the resilience layer and the serving code without a cost.
-The metrics exporter and the lock-order witness come with ROADMAP.md
-§A 5.
+The exporter is pull-based and costs nothing unless served; the witness
+is armed only by ``F16_LOCKWATCH``.
 """
 
-from flake16_framework_tpu_torch.obs.core import (  # noqa: F401
+# The lock-order witness must arm BEFORE obs.core runs: core's
+# module-level locks have to be minted by the patched factories for
+# lockwatch to see them (no-op unless F16_LOCKWATCH). The package's
+# ``__init__`` imports this module first, so every lock the port
+# creates at import time is traced.
+from flake16_framework_tpu_torch.obs import lockwatch as _lockwatch
+
+_lockwatch.maybe_install_from_env()
+
+from flake16_framework_tpu_torch.obs.core import (  # noqa: E402, F401
     Span,
     adopt_trace,
     append_jsonl,

@@ -24,8 +24,8 @@ a ``torch.profiler`` capture (CPU activity, and CUDA activity on a
 event; it runs whether telemetry is on or not. ``xprof_trace`` arms one
 such capture per (process, tag) from ``F16_XPROF``.
 ``record_device_manifest`` stamps the device facts (the JAX package's
-``record_jax_manifest``, read from torch). Not here: the JAX package's
-lock-order witness (ROADMAP.md §A 5).
+``record_jax_manifest``, read from torch). The lock-order witness
+(``obs/lockwatch.py``) is armed before this module's locks are made.
 """
 
 import atexit

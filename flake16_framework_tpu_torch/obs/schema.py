@@ -15,8 +15,10 @@ Three documents exist per run:
 
 Validation is permissive on EXTRA fields (events may carry arbitrary
 context like config keys) and strict on required fields and their types.
-The lint, audit, perfdb and lockwatch schemas come with the port's
-analysis tooling (ROADMAP.md §A 5, §A 7).
+Two more documents share the family: the performance database's rows
+(PERFDB_SCHEMA, ``obs/perfdb.py``) and the lock-order witness's dump
+(LOCKWATCH_SCHEMA, ``obs/lockwatch.py``). The lint and audit reports'
+validators come with the port's analysis tooling (ROADMAP.md §A 7).
 """
 
 EVENTS_FILE = "events.jsonl"
@@ -25,6 +27,17 @@ MANIFEST_FILE = "manifest.json"
 TELEMETRY_SCHEMA = "flake16-telemetry-v1"
 MANIFEST_SCHEMA = "flake16-run-manifest-v1"
 REPORT_SCHEMA = "flake16-report-v1"
+# The JAX package's ``audit --json`` document, which the performance
+# database ingests (its memory envelopes; obs/perfdb.rows_from_audit).
+AUDIT_SCHEMA = "flake16-audit-report-v1"
+# The performance-database row (obs/perfdb.py): one CRC'd JSONL line per
+# (backend, shape-signature, kernel/stage, knob-snapshot digest)
+# observation; rows stamp this constant.
+PERFDB_SCHEMA = "flake16-perfdb-v1"
+# The lock-order witness's document (obs/lockwatch.py): lock creation
+# sites and the observed held->acquired order edges, written at exit
+# when F16_LOCKWATCH is armed.
+LOCKWATCH_SCHEMA = "flake16-lockwatch-v1"
 
 _NUM = (int, float)
 
@@ -70,7 +83,10 @@ EVENT_FIELDS = {
     "slo": {"state": str, "burn_fast": _NUM, "burn_slow": _NUM},
     # Flight-recorder lifecycle (obs/flight.py): armed | dump | dump-dir.
     "flight": {"action": str},
-    # Performance-observatory lifecycle: append | truncate | backfill.
+    # Performance-database lifecycle (obs/perfdb.py): ``action`` is
+    # append | truncate | backfill. Append carries ``n`` (rows written)
+    # and ``path``; truncate carries the byte ``offset`` of the torn
+    # tail it cut; backfill carries ``n``/``rounds``.
     "perf": {"action": str},
 }
 
@@ -121,6 +137,40 @@ def validate_manifest(obj):
     if obj.get("schema") not in (None, MANIFEST_SCHEMA):
         problems.append(
             f"manifest: schema {obj.get('schema')!r} != {MANIFEST_SCHEMA!r}")
+    return problems
+
+
+# One perf-database row (obs/perfdb.py). The key quadruple is
+# (backend, shape, kernel, ksig): ``shape`` is the shape-signature
+# string, ``kernel`` names the kernel/stage the metrics time, ``ksig``
+# digests the knob snapshot (``"null"`` when ``knobs`` is null).
+# ``metrics`` maps metric name -> number; ``crc`` seals the row.
+PERFDB_ROW_FIELDS = {"schema": str, "backend": str, "shape": str,
+                     "kernel": str, "ksig": str, "metrics": dict,
+                     "src": str, "crc": str}
+
+
+def validate_perfdb_row(obj):
+    """Problems with one perfdb JSONL row (empty list = valid). CRC
+    verification is the store's job (obs/perfdb.load): this checks the
+    declared shape only, so torn-tail recovery stays a storage concern."""
+    problems = []
+    if not isinstance(obj, dict):
+        return [f"perfdb row is {type(obj).__name__}, want object"]
+    _check_fields(obj, PERFDB_ROW_FIELDS, problems, "perfdb row")
+    if obj.get("schema") != PERFDB_SCHEMA:
+        problems.append(
+            f"perfdb row: schema {obj.get('schema')!r} != "
+            f"{PERFDB_SCHEMA!r}")
+    knobs = obj.get("knobs")
+    if knobs is not None and not isinstance(knobs, dict):
+        problems.append(
+            f"perfdb row: field 'knobs' has type "
+            f"{type(knobs).__name__}, want dict or null")
+    for name, v in (obj.get("metrics") or {}).items():
+        if not isinstance(v, _NUM):
+            problems.append(
+                f"perfdb row: metrics[{name!r}] is not numeric")
     return problems
 
 

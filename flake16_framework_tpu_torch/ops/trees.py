@@ -46,10 +46,36 @@ import torch
 
 from flake16_framework_tpu_torch import rng
 from flake16_framework_tpu_torch.constants import HIST_BINS
-from flake16_framework_tpu_torch.kernels.hist import cum_hists
+from flake16_framework_tpu_torch.kernels.hist import cum_hists, max_window
 
-# Node-batch width of the BFS step per device type (results-neutral).
+# Node-batch width of the BFS step per device type (results-neutral),
+# unless an operator pins it with the JAX package's variables: on the card
+# ``F16_HIST_NODE_BATCH``, on the CPU a nonzero ``F16_HIST_NODE_BATCH_CPU``.
 NODE_BATCH = {"cuda": 128, "cpu": 8}
+NODE_BATCH_ENV = {"cuda": "F16_HIST_NODE_BATCH",
+                  "cpu": "F16_HIST_NODE_BATCH_CPU"}
+
+
+def default_node_batch(device_type, env=None):
+    """The hist grower's window width on ``device_type`` when its caller
+    names none: the operator's pin (``NODE_BATCH_ENV``; "0" on the CPU
+    means none, as in the JAX package), else ``NODE_BATCH``. A pin must be
+    a whole number from 1 to the widest window K1 holds at the grower's
+    bins (``kernels/hist.max_window``), else ValueError."""
+    env = os.environ if env is None else env
+    name = NODE_BATCH_ENV[device_type]
+    raw = env.get(name, "").strip()
+    if raw == "" or (device_type == "cpu" and raw == "0"):
+        return NODE_BATCH[device_type]
+    limit = max_window(HIST_BINS)
+    try:
+        width = int(raw)
+    except ValueError:
+        width = 0
+    if not 1 <= width <= limit:
+        raise ValueError(f"{name}={raw!r}: the window width must be a whole "
+                         f"number from 1 to {limit}")
+    return width
 
 # sklearn's FEATURE_THRESHOLD: two values closer than this are "equal" for
 # the exact grower's split candidates.
@@ -414,7 +440,7 @@ def _joined(parts, n_folds, n_trees, tree_chunk, fold_chunk):
 
 def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
                    random_splits, sqrt_features, max_depth=48, max_nodes=None,
-                   tree_chunk=None, fold_chunk=None):
+                   tree_chunk=None, fold_chunk=None, node_batch=None):
     """Fit one histogram-grown ensemble a fold, the folds' trees grown as
     one tree batch. x [G, N, F] f32, y [G, N] bool/int, w [G, N] >= 0
     sample weights (0 = row excluded) and ``keys`` [G, 2] threefry keys,
@@ -425,10 +451,11 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
     no bootstrap; both with sqrt_features. Tree t of fold g draws from
     ``split(split(keys[g], n_trees)[t])``, so each fold's forest equals
     ``fit_forest_hist`` on that fold bit for bit, and neither the BFS
-    window width (``NODE_BATCH``) nor the batches change it: at most
-    ``fold_chunk`` folds by ``tree_chunk`` trees grow as one batch (None:
-    all). A batch's step workspace is about 5 MiB a tree at N = 8000,
-    W = 128 (``parallel/sweep.py``, ``TREES_IN_FLIGHT``)."""
+    window width (``node_batch``; None: ``default_node_batch`` of the
+    device type) nor the batches change it: at most ``fold_chunk`` folds by
+    ``tree_chunk`` trees grow as one batch (None: all). A batch's step
+    workspace is about 5 MiB a tree at N = 8000, W = 128
+    (``parallel/sweep.py``, ``TREES_IN_FLIGHT``)."""
     n_fold, n, n_feat = x.shape
     if max_nodes is None:
         max_nodes = 2 * n
@@ -453,7 +480,8 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
             x[gs], bin_t[gs], edges, y01[gs], w_flat,
             kg[gs, ts].reshape(-1, 2), random_splits=random_splits,
             max_features=max_features, max_depth=max_depth,
-            max_nodes=max_nodes, node_batch=NODE_BATCH[x.device.type])
+            max_nodes=max_nodes,
+            node_batch=node_batch or default_node_batch(x.device.type))
         parts.append([f.view(*wb.shape[:2], *f.shape[1:]) for f in fields])
     return Forest(*_joined(parts, n_fold, n_trees, tree_chunk, fold_chunk),
                   max_depth)

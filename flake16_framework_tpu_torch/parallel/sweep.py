@@ -25,7 +25,9 @@ Three ways to run a config, each giving the same counts:
   ``dispatch_folds`` bound a batch, and ``TREES_IN_FLIGHT`` bounds it
   when they do not; no bound changes a result. A plan's members (the
   configs of one family, ``parallel/planner.py``) run one after another,
-  so each keeps its own step count.
+  so each keeps its own step count. The plan executor consults the
+  performance database (``obs/perfdb.py``): a recorded plan padding, and
+  a tuned window width for a hist family; neither changes a result.
 
 With a write-ahead journal (``resilience/journal.py``) attached, a config
 resumes at fold granularity: the folds already journaled with matching
@@ -52,6 +54,7 @@ import torch
 from flake16_framework_tpu_torch import config as cfg, obs, rng
 from flake16_framework_tpu_torch.device import resolve
 from flake16_framework_tpu_torch.kernels.build import launch_counts
+from flake16_framework_tpu_torch.obs import perfdb
 from flake16_framework_tpu_torch.ops import trees
 from flake16_framework_tpu_torch.ops.metrics import (
     confusion_by_fold, confusion_by_project, format_scores,
@@ -294,12 +297,14 @@ class SweepEngine:
         tree_chunk = self.dispatch_trees or min(n_trees, budget)
         return tree_chunk, self.dispatch_folds or max(1, budget // tree_chunk)
 
-    def _fit_count_folds(self, config_keys):
+    def _fit_count_folds(self, config_keys, **grow_kw):
         """The fold-batched fit of one config: each fold resampled in
         turn, then their trees grown as tree batches (``_batch_bounds``),
         the forests predicted as one batch, and the per-fold counts read
-        with one host read. Returns the counts, int32 [n_folds, P, 3],
-        each row equal to the default path's count of that fold."""
+        with one host read. ``grow_kw`` are extra keywords of the hist
+        grower (``run_plan``'s tuned ``node_batch``). Returns the counts,
+        int32 [n_folds, P, 3], each row equal to the default path's count
+        of that fold."""
         p = self._prepare(config_keys)
         fold_keys = self._fold_keys(config_keys)
         train_mask, test_mask = self._masks[config_keys[0]]
@@ -316,19 +321,21 @@ class SweepEngine:
         args = [torch.stack(t) for t in (xs, ys, ws, kfs)]
         kw = dict(p["fit_kw"], tree_chunk=tree_chunk, fold_chunk=fold_chunk)
         if p["use_hist"]:
-            forest = trees.fit_folds_hist(*args, edges=p["edges"], **kw)
+            forest = trees.fit_folds_hist(*args, edges=p["edges"], **kw,
+                                          **grow_kw)
         else:
             forest = trees.fit_folds(*args, **kw)
         return confusion_by_fold(
             p["y"], trees.predict_batch(forest, p["xp"]), test_mask,
             self.project_ids, len(self.project_names)).cpu().numpy()
 
-    def _run_member(self, config_keys, config_index):
-        """One plan member through the fold-batched fit; its fold records,
-        then its config record, are journaled before it returns. Returns
-        its result with its own combined wall (T_TEST = 0.0)."""
+    def _run_member(self, config_keys, config_index, grow_kw):
+        """One plan member through the fold-batched fit (``grow_kw``: the
+        hist grower's extra keywords); its fold records, then its config
+        record, are journaled before it returns. Returns its result with
+        its own combined wall (T_TEST = 0.0)."""
         t0 = time.time()
-        counts = self._fit_count_folds(config_keys)
+        counts = self._fit_count_folds(config_keys, **grow_kw)
         result = self._result(counts.sum(0, dtype=np.int32),
                               (time.time() - t0) / self.n_folds, 0.0)
         if self.journal is not None:
@@ -356,8 +363,19 @@ class SweepEngine:
         results hold the plan's clocks amortized over the members that
         ran (combined: T_TEST = 0.0), as the JAX package's, and those
         members join ``fused_configs`` (and, for a plan of more than one
-        config, ``amortized_configs``)."""
+        config, ``amortized_configs``).
+
+        A hist family asks the performance database once for a tuned
+        window width at the plan's shape (``perfdb.tuned_fit_overrides``,
+        sanitized there to K1's shared-memory bound); the width never
+        changes a forest, and without a usable row (or with the width
+        pinned by the operator) the grower keeps its own
+        (``trees.default_node_batch``). The exact grower takes none."""
         fs_name, model_name = plan.family
+        grow_kw = perfdb.tuned_fit_overrides(
+            self.device.type, plan.shape, model=model_name) \
+            if trees.hist_tier_default(self._spec(model_name).n_trees,
+                                       self.grower) else {}
         with obs.span("scores.plan", key=(fs_name, model_name, plan.batch),
                       counts=launch_counts, stage="plan",
                       batch=len(plan.configs), pad=plan.pad,
@@ -367,7 +385,7 @@ class SweepEngine:
                 own = [self._run_guarded(
                     guard, keys,
                     lambda keys=keys, index=index: self._run_member(
-                        keys, index))
+                        keys, index, grow_kw))
                     for keys, index in zip(plan.configs, plan.indices)]
         ran = [(k, r) for k, r in zip(plan.configs, own) if r is not None]
         self._count_done(len(ran), self._spec(model_name).n_trees)
@@ -428,10 +446,15 @@ class SweepEngine:
         for keys in single:
             put(keys, self._run_guarded(
                 guard, keys, lambda keys=keys: self.run_config(keys)))
+        # The performance database's recorded plan padding (``perfdb.
+        # plan_lookup``; None without a database): a pad only widens the
+        # Plan record, since members run one after another and pads never
+        # run.
         for pl in planner.plan_grid(
                 [k for k in todo if k not in single], devices=1,
                 n=self.features.shape[0], n_folds=self.n_folds,
-                tree_overrides=self.tree_overrides):
+                tree_overrides=self.tree_overrides,
+                perf_lookup=perfdb.plan_lookup(self.device.type)):
             for keys, res in zip(pl.configs, self.run_plan(pl, guard)):
                 put(keys, res)
         return scores

@@ -249,6 +249,22 @@ def replay(path, fingerprint=None, warn_out=sys.stderr):
     return rep
 
 
+# Wall timestamp of this process's most recent journal append, the
+# metrics exporter's journal fold lag source (obs/metrics.py): during a
+# sweep a lag growing without bound marks a wedged fold, not a finished
+# one. None until the first append.
+_last_append_ts = None
+
+
+def fold_lag_s(now=None):
+    """Seconds since the last journal append in this process, or None
+    before any append (the exporter skips absent sources)."""
+    if _last_append_ts is None:
+        return None
+    return max(0.0, (now if now is not None else time.time())
+               - _last_append_ts)
+
+
 class SweepJournal:
     """The writer half: exclusive, append-only, fsync-per-record.
 
@@ -309,12 +325,15 @@ class SweepJournal:
         return jr
 
     def _append(self, obj):
+        global _last_append_ts
         t0 = time.time()
         self._fd.write(_encode(obj))
         self._fd.flush()
         os.fsync(self._fd.fileno())
-        self.append_wall_s += time.time() - t0
+        t1 = time.time()
+        self.append_wall_s += t1 - t0
         self.n_appends += 1
+        _last_append_ts = t1
 
     def partial_folds(self, config_keys):
         """{fold: (rng_key_bytes, counts)} journaled for an unfinished

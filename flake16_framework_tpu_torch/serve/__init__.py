@@ -13,9 +13,12 @@ process or as a fleet:
   to a bucket, dispatches through the dispatch guard with bounded
   in-flight batches, quarantine on an abandoned dispatch;
 - ``service``   — ``ScoringService``: the in-process client API, p50/p99
-  latency, and ``drain()`` (admission close, in-flight completion,
-  retriable rejection of unstarted requests, durable-state flush with a
-  deadline that escalates to checkpoint-and-abort);
+  latency, the warm buckets (``resolve_buckets``: the performance
+  database's recorded ladder, else DEFAULT_BUCKETS), the metrics
+  exporter beside it (``metrics_port``), and ``drain()`` (admission
+  close, in-flight completion, retriable rejection of unstarted
+  requests, durable-state flush with a deadline that escalates to
+  checkpoint-and-abort);
 - ``wire``      — the fleet's length-prefixed JSON frames (byte-equal
   to the JAX package's);
 - ``fleet``     — the worker half (``WorkerServer``, ``worker_main``) and
@@ -27,8 +30,9 @@ process or as a fleet:
 
 SHAP is answered on the Tree SHAP unit kernel (``csrc/treeshap_unit.cu``)
 through ``ops.treeshap.graph_shap``; the RF and ET fits of the registry
-run the histogram kernel. The metrics exporter comes with ROADMAP.md
-§A 5.
+run the histogram kernel. ``serve --metrics-port N`` exports the live
+series (``obs/metrics.py``): the service's in one process, the fleet's
+federated through the router's one endpoint.
 """
 
 from flake16_framework_tpu_torch.serve.queue import (  # noqa: F401
@@ -42,5 +46,5 @@ from flake16_framework_tpu_torch.serve.registry import (  # noqa: F401
 from flake16_framework_tpu_torch.serve.store import ExecutableStore  # noqa: F401
 from flake16_framework_tpu_torch.serve.batcher import Microbatcher  # noqa: F401
 from flake16_framework_tpu_torch.serve.service import (  # noqa: F401
-    LatencyStats, ScoringService,
+    DEFAULT_BUCKETS, LatencyStats, ScoringService, resolve_buckets,
 )

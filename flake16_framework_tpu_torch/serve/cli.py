@@ -7,7 +7,7 @@ closed-loop client load, print one JSON stats line.
         [--kinds predict,shap] [--buckets 8,32,128]
         [--registry DIR] [--json]
         [--hold] [--hold-timeout S] [--drain-deadline S]
-        [--slo] [--slo-p99-ms MS]
+        [--metrics-port N] [--slo] [--slo-p99-ms MS]
         [--fleet W] [--workdir DIR] [--rolling-restart]
         [--worker --socket PATH [--device D]]
 
@@ -26,7 +26,11 @@ within the deadline and every client request was accounted for
 
 ``--slo`` arms the SLO monitor: declared objectives (``--slo-p99-ms``)
 evaluated as multi-window burn rates that shed load at admission on a
-breach (obs/slo.py).
+breach (obs/slo.py). ``--metrics-port N`` stands the Prometheus exporter
+up beside the service (``obs/metrics.py``; 0 = an ephemeral port) and
+prints ``METRICS_PORT <port>``; the SLO loop rides along with it. Without
+``--buckets`` the service warms the performance database's recorded
+ladder, else ``service.DEFAULT_BUCKETS`` (``service.resolve_buckets``).
 
 ``--fleet W`` fits + persists the registry (under ``--workdir`` when no
 ``--registry`` is given), spawns W worker processes over it
@@ -39,22 +43,16 @@ router's monitor accounts and deprioritizes, the workers' shed). With
 walk. ``--worker --socket PATH --registry DIR`` is the child half the
 fleet spawns: load the persisted registry (no fitting), warm, answer
 wire-protocol frames until drained; ``--device`` (a worker's only) is
-where it runs.
-
-The JAX package's ``--metrics-port`` (the exporter) is rejected with the
-queue of ROADMAP.md that brings it.
+where it runs. With ``--fleet W``, ``--metrics-port`` stands ONE
+federated exporter up beside the router (``register_fleet_sources``:
+per-worker series labelled ``worker="<i>"`` plus fleet aggregates);
+workers never open their own.
 """
 
 import json
 import sys
 import threading
 import time
-
-# Options of the JAX package's ``serve`` that the port does not have yet,
-# and what brings them (ROADMAP.md, queue A).
-_LATER = {
-    "--metrics-port": "the port's metrics exporter (ROADMAP.md §A 5)",
-}
 
 
 def sustained_load(service, feats, model_ids, *, n_requests=256, rows=16,
@@ -167,11 +165,13 @@ def _parse(args):
     opts = {
         "synth": 512, "trees": 16, "max_depth": 12, "ledger": None,
         "limit": None, "requests": 256, "rows": 16, "clients": 8,
-        # None = service.DEFAULT_BUCKETS; --buckets pins it explicitly.
+        # None = consult the performance database for a recorded bucket
+        # ladder, falling through to service.DEFAULT_BUCKETS
+        # (obs/perfdb.serve_buckets); --buckets pins it explicitly.
         "kinds": ("predict",), "buckets": None,
         "registry": None, "json": False,
         "hold": False, "hold_timeout": 120.0, "drain_deadline": 10.0,
-        "slo": False, "slo_p99_ms": 50.0,
+        "metrics_port": None, "slo": False, "slo_p99_ms": 50.0,
         "worker": False, "socket": None, "device": None,
         "fleet": None, "workdir": None, "rolling_restart": False,
     }
@@ -190,7 +190,8 @@ def _parse(args):
         elif a in ("--hold-timeout", "--drain-deadline", "--slo-p99-ms"):
             opts[a[2:].replace("-", "_")] = float(next(it))
         elif a in ("--synth", "--trees", "--max-depth", "--limit",
-                   "--requests", "--rows", "--clients", "--fleet"):
+                   "--requests", "--rows", "--clients", "--fleet",
+                   "--metrics-port"):
             opts[a[2:].replace("-", "_")] = int(next(it))
         elif a == "--ledger":
             opts["ledger"] = next(it)
@@ -201,10 +202,7 @@ def _parse(args):
         elif a == "--buckets":
             opts["buckets"] = tuple(int(b) for b in next(it).split(","))
         else:
-            later = _LATER.get(a)
-            raise ValueError(f"Unrecognized serve option {a!r}" + (
-                f": not in the port yet; it comes with {later}" if later
-                else ""))
+            raise ValueError(f"Unrecognized serve option {a!r}")
     if opts["device"] is not None and not opts["worker"]:
         raise ValueError("serve --device is a fleet worker's option "
                          "(serve --worker); the serve verb runs on cuda")
@@ -214,7 +212,9 @@ def _parse(args):
 def _fleet_main(opts, feats, registry, device):
     """The ``--fleet W`` body: spawn the worker fleet over the persisted
     registry on ``device``, route the sustained load through the hedging
-    router, then (optionally) walk a zero-drop rolling restart."""
+    router, then (optionally) walk a zero-drop rolling restart. With
+    ``--metrics-port`` the router's federated exporter serves throughout
+    and ``METRICS_PORT <port>`` is printed."""
     import os
 
     from flake16_framework_tpu_torch.obs.slo import SLOConfig
@@ -229,27 +229,43 @@ def _fleet_main(opts, feats, registry, device):
                buckets=opts["buckets"], slo_p99_ms=slo_p99,
                device=device) as fleet:
         with FleetRouter(fleet, slo=fleet_slo) as router:
-            result = sustained_load(
-                router, feats, registry.ids(),
-                n_requests=opts["requests"], rows=opts["rows"],
-                kinds=opts["kinds"], clients=opts["clients"])
-            if opts["rolling_restart"]:
-                result["rolling_restart"] = router.rolling_restart(
-                    drain_deadline_s=opts["drain_deadline"])
-            stats = router.stats()
-            result["fleet"] = {
-                "workers": opts["fleet"],
-                "pids": fleet.pids(),
-                "router": stats["router"],
-                "rps": stats["rps"],
-                "slo": stats["slo"],
-                "failover_s": router.last_failover_s,
-                "per_worker": [w["hb"].get("requests")
-                               for w in stats["workers"]],
-                "launches": [w["hb"].get("launches")
-                             for w in stats["workers"]],
-                "ready_s": [h.ready_s for h in fleet.workers],
-            }
+            metrics_srv = None
+            if opts["metrics_port"] is not None:
+                from flake16_framework_tpu_torch.obs import metrics
+
+                reg = metrics.MetricsRegistry()
+                metrics.register_process_sources(reg)
+                metrics.register_fleet_sources(reg, router)
+                metrics_srv = metrics.MetricsServer(
+                    reg, port=opts["metrics_port"]).start()
+                print(f"METRICS_PORT {metrics_srv.port}", flush=True)
+            try:
+                result = sustained_load(
+                    router, feats, registry.ids(),
+                    n_requests=opts["requests"], rows=opts["rows"],
+                    kinds=opts["kinds"], clients=opts["clients"])
+                if opts["rolling_restart"]:
+                    result["rolling_restart"] = router.rolling_restart(
+                        drain_deadline_s=opts["drain_deadline"])
+                stats = router.stats()
+                result["fleet"] = {
+                    "workers": opts["fleet"],
+                    "pids": fleet.pids(),
+                    "router": stats["router"],
+                    "rps": stats["rps"],
+                    "slo": stats["slo"],
+                    "failover_s": router.last_failover_s,
+                    "per_worker": [w["hb"].get("requests")
+                                   for w in stats["workers"]],
+                    "launches": [w["hb"].get("launches")
+                                 for w in stats["workers"]],
+                    "ready_s": [h.ready_s for h in fleet.workers],
+                }
+                if metrics_srv is not None:
+                    result["fleet"]["metrics_port"] = metrics_srv.port
+            finally:
+                if metrics_srv is not None:
+                    metrics_srv.stop()
     return result
 
 
@@ -308,13 +324,19 @@ def serve_main(args, device=None):
         return 1 if result["n_errors"] else 0
 
     slo_cfg = None
-    if opts["slo"]:
+    if opts["slo"] or opts["metrics_port"] is not None:
+        # The SLO loop rides along whenever the live plane is up: a
+        # metrics endpoint without burn rates would expose gauges the
+        # admission path ignores.
         from flake16_framework_tpu_torch.obs.slo import SLOConfig
 
         slo_cfg = SLOConfig(p99_ms=opts["slo_p99_ms"])
 
     with ScoringService(registry, buckets=opts["buckets"],
-                        device=registry.device, slo=slo_cfg) as svc:
+                        device=registry.device, slo=slo_cfg,
+                        metrics_port=opts["metrics_port"]) as svc:
+        if svc.metrics is not None:
+            print(f"METRICS_PORT {svc.metrics.port}", flush=True)
         if opts["hold"]:
             result = hold_until_signal(
                 svc, feats, registry.ids(), rows=opts["rows"],

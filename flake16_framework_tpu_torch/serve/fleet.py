@@ -382,7 +382,8 @@ def worker_main(opts):
 
     idx = worker_index()
     with ScoringService(registry, buckets=opts.get("buckets"),
-                        device=registry.device, slo=slo_cfg) as svc:
+                        device=registry.device, slo=slo_cfg,
+                        metrics_port=opts.get("metrics_port")) as svc:
         server = WorkerServer(svc, opts["socket"], index=idx)
         obs.manifest_update(verb="serve", fleet_worker=idx,
                             fleet_socket=opts["socket"])

@@ -20,8 +20,13 @@ SLO monitor watches the served latencies and errors; while its burn rate
 stands in breach, admission sheds load with a retriable rejection. That
 is all a breach does: the SHAP kernel and the device stay as they are.
 The warm span, the drain events and the manifest facts go to the
-telemetry (no-ops unless it is on). Not here yet (ROADMAP.md §A 5): the
-metrics exporter and the perfdb bucket consult.
+telemetry (no-ops unless it is on).
+
+Without ``buckets`` the service consults the performance database for a
+recorded warm-bucket ladder (``resolve_buckets``) and falls through to
+DEFAULT_BUCKETS bit-identically when none is usable. With
+``metrics_port`` (0 = ephemeral) a Prometheus exporter stands beside the
+service from ``start`` to ``stop`` (``obs/metrics.py``).
 """
 
 import os
@@ -41,8 +46,26 @@ from flake16_framework_tpu_torch.serve.store import (
     ExecutableStore, KINDS, MANIFEST_FILE,
 )
 
-# The bucket ladder every serve entry point warms unless told otherwise.
+# The bucket ladder every serve entry point warms when nothing better is
+# known — the fall-through side of the perfdb consult below.
 DEFAULT_BUCKETS = (8, 32, 128)
+
+
+def resolve_buckets(buckets=None, backend=None):
+    """The warm-bucket ladder for a service: an explicit ``buckets``
+    wins untouched; ``None`` consults the performance database
+    (obs/perfdb.serve_buckets, for ``backend``: the service's device
+    type, else the process's) for a recorded best-known ladder and falls
+    through to DEFAULT_BUCKETS bit-identically when the database, the
+    row, or a valid ``serve_buckets`` knob is absent."""
+    if buckets is not None:
+        return tuple(sorted(int(b) for b in buckets))
+    from flake16_framework_tpu_torch.obs import perfdb
+
+    recorded = perfdb.serve_buckets(backend)
+    if recorded:
+        return tuple(sorted(int(b) for b in recorded))
+    return DEFAULT_BUCKETS
 
 
 class LatencyStats:
@@ -91,12 +114,12 @@ class ScoringService:
     """
 
     def __init__(self, registry, *, buckets=None, max_inflight=2,
-                 queue_max=256, guard=None, device=None, slo=None):
+                 queue_max=256, guard=None, device=None, slo=None,
+                 metrics_port=None):
         self.registry = registry
-        self.buckets = (DEFAULT_BUCKETS if buckets is None
-                        else tuple(sorted(int(b) for b in buckets)))
         self.store = ExecutableStore(registry, device=device)
         self.device = self.store.device
+        self.buckets = resolve_buckets(buckets, self.device.type)
         self.requests = RequestQueue(maxsize=queue_max)
         self.latency = LatencyStats()
         # ``slo`` is the declared-objectives config (True = defaults,
@@ -108,6 +131,10 @@ class ScoringService:
             self.store, self.requests, buckets=self.buckets,
             max_inflight=max_inflight, guard=guard, stats=self.latency,
             monitor=self.slo)
+        # ``metrics_port`` stands the Prometheus exporter up beside the
+        # service (0 = ephemeral; None = off, same contract as the SLO).
+        self.metrics_port = metrics_port
+        self.metrics = None
 
     # -- lifecycle -------------------------------------------------------
 
@@ -122,12 +149,66 @@ class ScoringService:
             verb="serve", serve_models=len(self.registry),
             serve_buckets=list(self.buckets),
             serve_device=str(self.device))
+        if self.metrics_port is not None:
+            self.metrics = self._make_metrics_server(self.metrics_port)
+            self.metrics.start()
         self.batcher.start()
         return self
 
     def stop(self):
         self.requests.close()
         self.batcher.stop()
+        if self.metrics is not None:
+            self.metrics.stop()
+            self.metrics = None
+
+    def _make_metrics_server(self, port):
+        """Registry with the process-wide sources plus this service's
+        live serve/SLO sources, behind a loopback HTTP thread."""
+        from flake16_framework_tpu_torch.obs.metrics import (
+            MetricsRegistry, MetricsServer, register_process_sources,
+        )
+
+        reg = MetricsRegistry()
+        register_process_sources(reg)
+        reg.register("f16_serve_queue_depth", self.requests.depth,
+                     help="Requests queued awaiting coalescing.")
+        reg.register("f16_serve_inflight",
+                     lambda: self.batcher.inflight,
+                     help="Microbatches currently inside a dispatch.")
+        reg.register("f16_serve_quarantined",
+                     lambda: len(self.batcher.quarantined),
+                     help="Models quarantined after abandoned dispatches.")
+        reg.register("f16_serve_requests_total",
+                     lambda: self.latency.snapshot()["count"],
+                     kind="counter",
+                     help="Requests completed since service start.")
+        reg.register("f16_serve_p50_ms",
+                     lambda: self.latency.snapshot()["p50_ms"],
+                     help="p50 request latency over the rolling window, "
+                          "ms.")
+        reg.register("f16_serve_p99_ms",
+                     lambda: self.latency.snapshot()["p99_ms"],
+                     help="p99 request latency over the rolling window, "
+                          "ms.")
+        if self.slo is not None:
+            reg.register("f16_slo_burn_fast",
+                         lambda: self.slo.burn_fast,
+                         help="SLO burn rate over the fast window "
+                              "(1.0 = on budget).")
+            reg.register("f16_slo_burn_slow",
+                         lambda: self.slo.burn_slow,
+                         help="SLO burn rate over the slow window.")
+            reg.register("f16_slo_shedding",
+                         lambda: int(self.slo.shedding),
+                         help="1 while admission is shedding load.")
+            reg.register("f16_serve_shed_total",
+                         lambda: self.slo.shed_total, kind="counter",
+                         help="Admissions rejected by SLO shedding.")
+            reg.register("f16_slo_time_in_degraded_seconds",
+                         lambda: self.slo.summary()["time_in_degraded_s"],
+                         help="Cumulative wall seconds spent shedding.")
+        return MetricsServer(reg, port=port)
 
     def slo_summary(self):
         """The SLO rollup (None without an SLO loop)."""

@@ -25,6 +25,7 @@ import socket
 import struct
 import threading
 import time
+import urllib.request
 
 import jax
 import numpy as np
@@ -516,6 +517,50 @@ def test_fleet_stats_and_heartbeats(fleet_pair, registry, data):
                for h in fleet.workers)
 
 
+def test_fleet_federated_metrics_endpoint(fleet_pair, registry, data):
+    """ONE endpoint federates the whole fleet (``register_fleet_sources``
+    on the router): worker-labelled series for both workers plus the
+    fleet aggregates, in exposition valid under the JAX package's
+    validator, with the series the JAX package's function registers on
+    the same router."""
+    from flake16_framework_tpu.obs import metrics as jmetrics
+    from flake16_framework_tpu_torch.obs import metrics
+
+    fleet, router, _ = fleet_pair
+    feats, _ = data
+    reg = metrics.MetricsRegistry()
+    metrics.register_process_sources(reg)
+    metrics.register_fleet_sources(reg, router)
+    jreg = jmetrics.register_fleet_sources(jmetrics.MetricsRegistry(),
+                                           router)
+    assert set(jreg.names()) <= set(reg.names())
+    for i in range(4):
+        router.score(registry.ids()[0], feats[i:i + 4], timeout=60)
+    time.sleep(1.2)  # one heartbeat sweep so worker-reported stats land
+    with metrics.MetricsServer(reg, port=0) as server:
+        url = f"http://127.0.0.1:{server.port}/metrics"
+        with urllib.request.urlopen(url, timeout=10.0) as resp:
+            body = resp.read().decode()
+    assert jmetrics.validate_exposition(body) == []
+    assert metrics.validate_exposition(body) == []
+    lines = body.splitlines()
+    assert 'f16_fleet_worker_up{worker="0"} 1' in lines
+    assert 'f16_fleet_worker_up{worker="1"} 1' in lines
+    assert "f16_fleet_workers_up 2" in lines
+    names = {line.split()[2] for line in lines if line.startswith("# TYPE ")}
+    for expected in ("f16_fleet_worker_up", "f16_fleet_worker_pending",
+                     "f16_fleet_worker_requests_total",
+                     "f16_fleet_workers_up", "f16_fleet_rps",
+                     "f16_fleet_queue_depth", "f16_fleet_inflight",
+                     "f16_fleet_quarantined", "f16_fleet_requests_total",
+                     "f16_fleet_p99_ms", "f16_fleet_redispatches_total",
+                     "f16_fleet_burn_fast", "f16_host_rss_peak_mb"):
+        assert expected in names, (expected, sorted(names))
+    served = [ln for ln in lines
+              if ln.startswith("f16_fleet_worker_requests_total{")]
+    assert sorted(ln.split('"')[1] for ln in served) == ["0", "1"]
+
+
 def test_fleet_trace_adopted_by_workers(fleet_pair, registry, data,
                                         tmp_path, monkeypatch):
     """Sampled requests carry the router's trace across the wire: each
@@ -749,11 +794,15 @@ def test_serve_cli_fleet_with_rolling_restart(tmp_path, capsys):
          "--requests", "8", "--rows", "4", "--clients", "2", "--buckets",
          "4,8", "--kinds", "predict,shap", "--json",
          # an objective no CPU run misses: the workers never shed here
-         "--slo", "--slo-p99-ms", "60000"],
+         "--slo", "--slo-p99-ms", "60000", "--metrics-port", "0"],
         device="cpu")
-    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lines = capsys.readouterr().out.strip().splitlines()
+    stats = json.loads(lines[-1])
     assert code == 0 and stats["n_errors"] == 0 and stats["requests"] == 8
     fl = stats["fleet"]
+    # the router's federated exporter served throughout
+    assert f"METRICS_PORT {fl['metrics_port']}" in lines
+    assert fl["metrics_port"] > 0
     assert fl["workers"] == 2 and len(fl["pids"]) == 2
     assert fl["slo"]["objective_p99_ms"] == 60000.0
     assert len(fl["per_worker"]) == 2 and len(fl["ready_s"]) == 2
@@ -773,6 +822,7 @@ def test_serve_cli_fleet_with_rolling_restart(tmp_path, capsys):
     (["--worker", "--device", "cpu"], "device", "cpu"),
     (["--slo"], "slo", True),
     (["--slo-p99-ms", "75"], "slo_p99_ms", 75.0),
+    (["--fleet", "2", "--metrics-port", "9108"], "metrics_port", 9108),
 ])
 def test_serve_cli_parses_fleet_and_slo_flags(args, key, value):
     assert tcli._parse(args)[key] == value

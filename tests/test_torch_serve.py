@@ -543,13 +543,29 @@ def test_serve_cli_smoke(capsys):
     assert len(stats["models"]) == 2
 
 
-@pytest.mark.parametrize("flag,queue", [("--metrics-port", "§A 5")])
-def test_serve_cli_rejects_later_flags(flag, queue):
-    """The JAX package's exporter flag raises, naming the ROADMAP.md queue
-    that brings it, through the port's command line. (Its SLO and fleet
-    flags parse: tests/test_torch_fleet.py.)"""
-    with pytest.raises(ValueError, match=f"not in the port yet.*{queue}"):
-        tmain.main(["serve", flag, "1"])
+@pytest.mark.parametrize("flag,value", [("--metrics-port", "port")])
+def test_serve_cli_rejects_later_flags(flag, value):
+    """No flag of the JAX package's ``serve`` is held back for a later
+    slice any more (the port keeps no ``_LATER`` table): the exporter's
+    flag is rejected only for a malformed value, through the port's
+    command line. (It parses: ``test_serve_cli_parses_metrics_port``;
+    the SLO and fleet flags: tests/test_torch_fleet.py.)"""
+    from flake16_framework_tpu_torch.serve import cli as tcli
+
+    assert not hasattr(tcli, "_LATER")
+    with pytest.raises(ValueError, match="invalid literal"):
+        tmain.main(["serve", flag, value])
+
+
+@pytest.mark.parametrize("value", ["0", "1", "9464"])
+def test_serve_cli_parses_metrics_port(value):
+    """``--metrics-port N`` parses to the service's ``metrics_port`` (0:
+    an ephemeral port); its run is held in tests/test_torch_metrics.py."""
+    from flake16_framework_tpu_torch.serve import cli as tcli
+
+    assert tcli._parse(["--metrics-port", value])["metrics_port"] == \
+        int(value)
+    assert tcli._parse([])["metrics_port"] is None
 
 
 def test_serve_cli_rejects_unknown_flag():
