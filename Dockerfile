@@ -81,6 +81,8 @@ WORKDIR /home/user
 # both pytest plugins). Installed editable-style into subject venvs by setup.
 COPY --chown=user pyproject.toml framework/
 COPY --chown=user flake16_framework_tpu framework/flake16_framework_tpu
+# The PyTorch port, whose `run` launches `python3 -m flake16_framework_tpu_torch container` here.
+COPY --chown=user flake16_framework_tpu_torch framework/flake16_framework_tpu_torch
 
 # Optional per-subject pins (see header). The directory may be empty.
 COPY --chown=user subjects subjects

@@ -90,6 +90,24 @@ builds a service under a recorded bucket ladder, which warms exactly that
 ladder (served values and K2 on the serving rows held at those sizes).
 Every other phase runs with ``F16_PERFDB=0``.
 
+Two phases chain the collection stage (the ``setup``/``container``/
+``run``/``tests`` layer, host code) into the card. ``collect_chain`` runs
+the port's pytest plugins on a 28-test toy git subject (14 stable, 12
+NOD, one OD pair) in pytest subprocesses, 4 baseline, 2 shuffle and 1
+testinspect run, with the plugin selection of the port's container
+command; collates the artifacts with the port's ``write_tests``, checks
+the labels, runs ``write_scores`` on the card for an RF (K1) and a
+Decision Tree config at full width (the card's scores equal to the
+CPU's), ``write_shap`` on the card and ``write_figures`` on the result.
+``collate_scale`` writes the plugins' artifacts of the synthetic dataset
+at the study's run counts (26 projects, 2,500 + 2,500 + 1 runs a project:
+130,078 files; 2000 tests, about 10 M outcome lines) with the generator of
+``tests/torch_collect_cases.py``, runs ``python -m
+flake16_framework_tpu_torch tests`` on them in a child process (its
+output must equal the generator's expected ``tests.json``; wall and
+lines/s printed), removes the data and runs
+``write_scores`` on the card for ``MAIN_CONFIGS`` on the collated file.
+
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
@@ -2030,6 +2048,204 @@ def print_fleet(fleet_rep, fleet_launches, drill, smi):
           f"{drill['wall_s']:.1f} s", flush=True)
 
 
+CHAIN_CONFIGS = (
+    ("NOD", "Flake16", "None", "None", "Random Forest"),
+    ("NOD", "Flake16", "None", "None", "Decision Tree"),
+)
+CHAIN_RUNS = {"baseline": 4, "shuffle": 2, "testinspect": 1}
+# The collate_scale phase's tests: half of N_TESTS, about 77 a project
+# instead of 154, since at N_TESTS the phase took 214.8 s on the card,
+# past its 180 s budget. Runs per mode are never cut: the verb labels only
+# complete tests, at the full N_RUNS.
+COLLATE_TESTS = 2000
+
+
+def _collect_cases():
+    """``tests/torch_collect_cases.py`` of this checkout, imported by path:
+    the chain's toy subject and the collation's data generator."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_collect_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_collect_cases",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_collect_chain(tmp):
+    """The collection stage chained into the card: the port's plugins on
+    the 28-test toy git subject in pytest subprocesses (4 baseline, 2
+    shuffle, 1 testinspect run, selected as the port's container command
+    selects them), the port's ``write_tests`` on their artifacts, then
+    ``write_scores`` on the card for an RF (K1) and a Decision Tree config
+    at full width, held against the CPU's, ``write_shap`` on the card and
+    ``write_figures`` on the result. The kernels' counts are set to 0 just
+    before the scores (the plugins and the collation launch nothing) and
+    read after the figures."""
+    from flake16_framework_tpu_torch import config as tcfg
+    from flake16_framework_tpu_torch.constants import (
+        FLAKY, NON_FLAKY, OD_FLAKY,
+    )
+    from flake16_framework_tpu_torch.figures.report import write_figures
+    from flake16_framework_tpu_torch.pipeline import write_scores, write_shap
+    from flake16_framework_tpu_torch.runner.collate import write_tests
+    from flake16_framework_tpu_torch.runner.containers import PLUGIN_SELECT
+    from flake16_framework_tpu_torch.runner.subjects import Subject
+
+    cases = _collect_cases()
+    d = os.path.join(tmp, "collect_chain")
+    subjects = os.path.join(d, "subjects")
+    checkout = os.path.join(subjects, "proj", "proj")
+    data = os.path.join(d, "data")
+    os.makedirs(data)
+    cases.make_chain_subject(checkout)
+    tj = os.path.join(d, "tests.json")
+    out = {}
+    t0 = time.time()
+    cases.collect(checkout, data, "proj", PLUGIN_SELECT,
+                  os.path.dirname(os.path.abspath(__file__)),
+                  shuffle_seeds=cases.chain_shuffle_seeds(),
+                  n_baseline=CHAIN_RUNS["baseline"])
+    out["plugin_runs"] = sum(CHAIN_RUNS.values())
+    out["plugins_s"] = time.time() - t0
+    t0 = time.time()
+    tests = write_tests(data, tj, subjects, CHAIN_RUNS)
+    out["write_tests_s"] = time.time() - t0
+    labels = {nid.split("::")[-1]: row[1]
+              for nid, row in tests["proj"].items()}
+    _require(len(labels) == 28 and labels["test_zz_od"] == OD_FLAKY
+             and labels["test_aa_dep"] == NON_FLAKY
+             and all(labels[f"test_nod_{i:02d}"] == FLAKY for i in range(12))
+             and all(labels[f"test_stable_{i:02d}"] == NON_FLAKY
+                     for i in range(14)), f"chain labels {labels}")
+    out["labels"] = {str(c): sum(v == c for v in labels.values())
+                     for c in (NON_FLAKY, OD_FLAKY, FLAKY)}
+
+    t0 = time.time()
+    gpu, _, _, k1, _ = _run_scores(tj, os.path.join(d, "scores.pkl"),
+                                   CHAIN_CONFIGS)
+    out["scores_s"] = time.time() - t0
+    _require(k1[0] > 0 and k1[1] == 0, f"chain hist_cumsum launches {k1}")
+    cpu = write_scores(tj, os.path.join(d, "scores-cpu.pkl"), max_depth=48,
+                       configs=list(CHAIN_CONFIGS), device="cpu",
+                       progress_out=io.StringIO())
+    for k in CHAIN_CONFIGS:
+        _require(cpu[k][2:] == gpu[k][2:], f"chain {k}: card and CPU "
+                 f"scores differ: {gpu[k][3]} vs {cpu[k][3]}")
+        fp, fn, tp = gpu[k][3][:3]
+        _require(fp + fn + tp <= 28 and tp > 0 and list(gpu[k][2]) == [
+            "proj"], f"chain {k}: {gpu[k]}")
+    out["configs"] = [{"config": "/".join(k), "hist_cumsum_launches": n,
+                       "counts_fp_fn_tp": gpu[k][3][:3], "f1": gpu[k][3][5]}
+                      for k, n in zip(CHAIN_CONFIGS, k1)]
+
+    t0 = time.time()
+    shap = write_shap(tj, os.path.join(d, "shap.pkl"))
+    out["shap_s"] = time.time() - t0
+    for r in shap:
+        _require(r["values"].shape == (28, 16)
+                 and np.isfinite(r["values"]).all(), "chain shap values")
+    with open(os.path.join(d, "scores.pkl"), "wb") as fd:
+        pickle.dump({k: gpu.get(k, gpu[CHAIN_CONFIGS[0]])
+                     for k in tcfg.iter_config_keys()}, fd)
+    fig = os.path.join(d, "figures")
+    write_figures(tj, os.path.join(d, "scores.pkl"),
+                  os.path.join(d, "shap.pkl"),
+                  subjects=[Subject(name="proj", repo="org/proj", sha="x",
+                                    package_dir=".", commands=("pytest",))],
+                  star_fetch=lambda repo: {}, out_dir=fig)
+    for name in ("tests.tex", "req-runs.tex", "corr.tex", "nod-top.tex",
+                 "shap.tex"):
+        _require(os.path.getsize(os.path.join(fig, name)) > 0, name)
+    launches = _read_counts()
+    out["launches"] = launches
+    return launches, out
+
+
+def run_collate_scale(tmp):
+    """The ``tests`` verb at the study's run counts: the generator of
+    ``tests/torch_collect_cases.py`` writes the plugins' artifacts of the
+    synthetic dataset (seed 0, ``COLLATE_TESTS`` tests, 26 projects) at the
+    full run counts (2,500 baseline + 2,500 shuffle + 1 testinspect run a
+    project),
+    ``python -m flake16_framework_tpu_torch tests`` collates them in a
+    child process, as a user runs it, and its ``tests.json`` must equal
+    the generator's expected dict. The data directory is removed, then
+    ``write_scores`` runs on the card for ``MAIN_CONFIGS`` on the collated
+    ``tests.json``, with the kernels' counts set to 0 just before it and
+    read just after."""
+    import shutil
+
+    from flake16_framework_tpu_torch.constants import N_RUNS, SUBJECTS_DIR
+    from flake16_framework_tpu_torch.utils.synth import make_dataset
+
+    cases = _collect_cases()
+    d = os.path.join(tmp, "collate_scale")
+    data = os.path.join(d, "data")
+    out = {"n_runs": N_RUNS}
+    t0 = time.time()
+    expected, stats = cases.write_data_dir(
+        data, make_dataset(n_tests=COLLATE_TESTS, n_projects=N_PROJECTS,
+                           seed=0), N_RUNS, SUBJECTS_DIR, seed=0)
+    out["generate_s"] = time.time() - t0
+    out.update(stats)
+    with os.scandir(data) as it:
+        out["bytes"] = sum(e.stat().st_size for e in it)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("F16_TELEMETRY", None)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "flake16_framework_tpu_torch",
+                        "tests"], cwd=d, env=env, capture_output=True,
+                       text=True, timeout=900)
+    out["verb_s"] = time.time() - t0
+    _require(r.returncode == 0, f"tests verb exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    out["lines_per_s"] = out["outcome_lines"] / out["verb_s"]
+    tj = os.path.join(d, "tests.json")
+    with open(tj) as fd:
+        got = json.load(fd)
+    _require(got == expected, "collated tests.json != the generator's")
+    out["tests"] = sum(len(v) for v in got.values())
+    out["projects"] = len(got)
+    shutil.rmtree(data)
+
+    out_file = os.path.join(d, "scores.pkl")
+    scores, launches, walls, k1, _ = _run_scores(tj, out_file, MAIN_CONFIGS)
+    _require(all(n > 0 for n in k1), f"collate_scale K1 launches {k1}")
+    with open(out_file, "rb") as fd:
+        on_disk = pickle.load(fd)
+    _check_schema(on_disk, MAIN_CONFIGS, N_PROJECTS)
+    out["configs"] = _config_rows(scores, MAIN_CONFIGS, walls, k1)
+    out["launches"] = launches
+    return launches, out
+
+
+def print_collection(chain, scale, smi):
+    print(f"collect_chain ({smi}): {chain['plugin_runs']} plugin runs in "
+          f"{chain['plugins_s']:.2f} s, write_tests "
+          f"{chain['write_tests_s']:.3f} s, labels {chain['labels']}; "
+          f"scores on the card {chain['scores_s']:.2f} s == CPU; shap "
+          f"{chain['shap_s']:.2f} s; figures written; launches "
+          f"{chain['launches']}", flush=True)
+    for c in chain["configs"]:
+        print(f"collect_chain {c['config']}: hist_cumsum launches "
+              f"{c['hist_cumsum_launches']}, F1 {c['f1']}, (FP, FN, TP) "
+              f"{c['counts_fp_fn_tp']}", flush=True)
+    print(f"collate_scale ({smi}): {scale['files']} files, "
+          f"{scale['outcome_lines']} outcome lines, {scale['bytes']} bytes "
+          f"generated in {scale['generate_s']:.2f} s; tests verb "
+          f"{scale['verb_s']:.2f} s ({scale['lines_per_s']:.0f} lines/s); "
+          f"{scale['tests']} tests in {scale['projects']} projects == "
+          f"expected", flush=True)
+    for c in scale["configs"]:
+        print(f"collate_scale {c['config']}: wall {c['wall_s']:.2f} s, "
+              f"hist_cumsum launches {c['hist_cumsum_launches']}, F1 "
+              f"{c['f1']}, (FP, FN, TP) {c['counts_fp_fn_tp']}", flush=True)
+
+
 # The crash-tolerance drills run ``write_scores`` in child processes on
 # the three configs below: an RF and an ET config on K1, a Decision Tree
 # on the exact grower; all three are in the scores path, whose results are
@@ -3036,6 +3252,11 @@ def main():
         lap("fleet_path")
         drill = run_fleet_drill(tmp, serve_reg, serve_feats)
         lap("fleet_drill")
+        chain_launches, chain = run_collect_chain(tmp)
+        lap("collect_chain")
+        scale_launches, scale = run_collate_scale(tmp)
+        lap("collate_scale")
+        print_collection(chain, scale, smi)
         load = serve["load"]
         print(f"serve path ({smi}): registered {len(GRID_CONFIGS)} models "
               f"in {serve['register_s']:.2f} s (K1 "
@@ -3114,7 +3335,8 @@ def main():
              "shap": shap_launches, "shap_grid": grid_launches,
              "serve": serve_launches, "fleet": fleet_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"],
-             "metrics": metrics_launches, **perfdb_launches}
+             "metrics": metrics_launches, **perfdb_launches,
+             "collect_chain": chain_launches, "collate_scale": scale_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
     kernels = {"kernels": [{k: kern[k] for k in (
@@ -3138,7 +3360,8 @@ def main():
               "shap_grid_explain_profiles": explains, "serve_path": serve,
               "fleet_path": fleet_rep, "fleet_drill": drill,
               "metrics_path": met, "perfdb_path": pdb,
-              "lockwatch_drill": lw,
+              "lockwatch_drill": lw, "collect_chain": chain,
+              "collate_scale": scale,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,
               "cuda": torch.version.cuda}

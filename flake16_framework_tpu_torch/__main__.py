@@ -1,6 +1,14 @@
-"""Command line of the port, on the GPU, reading ``tests.json`` in the
-working directory and writing there: ``python -m
-flake16_framework_tpu_torch scores`` runs the 10-fold CV sweep over all
+"""Command line of the port. The collection stages are host code that
+needs no torch: ``python -m flake16_framework_tpu_torch setup``
+provisions every subject's virtualenv, ``... container NAME CMD...`` is
+the entry point inside a container (the setup commands, then pytest with
+this package's plugins and the mode's flags), ``... run MODE...`` runs
+the Docker campaign of the modes (``baseline``, ``shuffle``,
+``testinspect``) with resume from ``log.txt``, and ``... tests``
+collates ``data/`` into ``tests.json`` (``runner/``, ``plugins/``).
+
+The rest runs on the GPU, reading ``tests.json`` in the working
+directory and writing there: ``... scores`` runs the 10-fold CV sweep over all
 216 configs into ``scores.pkl``, ``... scores lopo`` the
 leave-one-project-out sweep into ``scores-lopo.pkl``, ``... resume
 [lopo]`` continues a killed sweep from its journal or partial pickle,
@@ -40,8 +48,8 @@ runs per kernel/stage and ranks the deltas, ``sentinel [--json]
 trajectory, and ``lookup BACKEND SHAPE [KERNEL] [--json]`` prints the
 best-known knob row that the planner (``plan_pad_to``), the plan
 executor (the hist grower's window width) and ``serve`` (its warm
-buckets) consult. Like ``report`` and ``trace``, it starts no telemetry
-run."""
+buckets) consult. Like ``report``, ``trace`` and the four collection
+verbs, it starts no telemetry run."""
 
 import os
 import sys
@@ -95,8 +103,32 @@ def _shap(args):
                            mode="path" if mode == "grid" else mode, **kw)
 
 
-_COMMANDS = ("scores", "resume", "shap", "figures", "serve", "report",
-             "trace", "perf")
+_COMMANDS = ("setup", "container", "run", "tests", "scores", "resume",
+             "shap", "figures", "serve", "report", "trace", "perf")
+
+
+def _host_verb(command, args):
+    """The collection stages, host code that imports no torch:
+    ``setup`` provisions the subject venvs, ``container NAME CMD...`` is
+    the in-container entry point, ``run MODE...`` the Docker campaign,
+    ``tests`` the collation into ``tests.json``."""
+    if command == "tests":
+        for a in args:
+            raise ValueError(f"Unrecognized tests option {a!r}")
+        from flake16_framework_tpu_torch.runner.collate import write_tests
+
+        write_tests()
+        return
+    from flake16_framework_tpu_torch.runner import containers
+
+    if command == "setup":
+        for a in args:
+            raise ValueError(f"Unrecognized setup option {a!r}")
+        containers.provision_all()
+    elif command == "container":
+        containers.container_entrypoint(*args)
+    else:
+        containers.run_experiment(args)
 
 
 def main(argv=None):
@@ -123,6 +155,9 @@ def main(argv=None):
         from flake16_framework_tpu_torch.obs.perf_diff import perf_main
 
         perf_main(args)
+        return
+    if command in ("setup", "container", "run", "tests"):
+        _host_verb(command, args)
         return
     obs.configure_from_env()
     if command == "serve":

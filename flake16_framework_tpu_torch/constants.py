@@ -1,14 +1,49 @@
 """Constants shared with the reference study's artifacts (a copy of the
-subset the port needs: file names, label encoding, feature order)."""
+subset the port needs: file names, image paths, run counts, label
+encoding, feature order). The values are cross-process contracts and
+equal the JAX package's."""
 
+import os
+
+LOG_FILE = "log.txt"
 TESTS_FILE = "tests.json"
 SCORES_FILE = "scores.pkl"
 LOPO_SCORES_FILE = "scores-lopo.pkl"
 SHAP_FILE = "shap.pkl"
 SUBJECTS_FILE = "subjects.txt"
+REQUIREMENTS_FILE = "requirements.txt"
+
+DATA_DIR = "data"
+STDOUT_DIR = "stdout"
+WORK_DIR = os.path.join("/", "home", "user")
+SUBJECTS_DIR = os.path.join(WORK_DIR, "subjects")
+CONT_DATA_DIR = os.path.join(WORK_DIR, DATA_DIR)
+
+CONT_TIMEOUT = 7200
+# Pinned for reproducibility, at a version that supports the Python 3.12
+# venvs of the containers.
+PIP_VERSION = "pip==24.0"
+IMAGE_NAME = "flake16framework"
+PIP_INSTALL = ["pip", "install", "-I", "--no-deps"]
 
 # Label encoding: 1 = order-dependent flaky, 2 = non-order-dependent flaky.
 NON_FLAKY, OD_FLAKY, FLAKY = 0, 1, 2
+
+# Runs per mode.
+N_RUNS = {"baseline": 2500, "shuffle": 2500, "testinspect": 1}
+
+# pytest plugins that interfere with flakiness measurement.
+PLUGIN_BLACKLIST = (
+    "-p", "no:cov", "-p", "no:flaky", "-p", "no:xdist", "-p", "no:sugar",
+    "-p", "no:replay", "-p", "no:forked", "-p", "no:ordering",
+    "-p", "no:randomly", "-p", "no:flakefinder", "-p", "no:random_order",
+    "-p", "no:rerunfailures",
+)
+
+# Setup installs the framework source tree (both packages; the image
+# copies it here) into every subject venv with --no-deps.
+FRAMEWORK_DIR = os.path.join(WORK_DIR, "framework")
+PLUGINS = (FRAMEWORK_DIR,)
 
 # The 16 Flake16 features, column order fixed: cols 0-2 from coverage,
 # 3-8 from rusage, 9-15 static.
