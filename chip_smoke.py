@@ -77,7 +77,12 @@ the load's, device memory above 0; ``fleet_path`` scrapes the router's
 federated endpoint the same way (3 workers up, series for workers 0-2).
 ``lockwatch_drill`` repeats the drain drill's child with the lock-order
 witness armed (``F16_LOCKWATCH``): its dump validates, holds the locks the
-port makes at import time and the serving locks, and has no cycle.
+port makes at import time and the serving locks, and has no cycle. A
+second witnessed child heals a torn performance database under telemetry
+(``perfdb.append`` cuts the tail under ``_append_lock`` and emits the
+truncation under ``obs/core``'s ``_lock``): its dump must hold that edge,
+one between two locks of the static model, which the serving drill's
+dump (its one nested acquisition is inside ``logging``) lacks.
 ``perfdb_path`` points ``F16_PERFDB`` at a fresh database, ingests the
 telemetry path's run (rows on ``cuda``, kernel rows with its launch
 counts), runs ``scores planner`` under telemetry with the empty database
@@ -89,6 +94,25 @@ step at that width), diffs the two telemetry runs (``perf diff``), and
 builds a service under a recorded bucket ladder, which warms exactly that
 ladder (served values and K2 on the serving rows held at those sizes).
 Every other phase runs with ``F16_PERFDB=0``.
+
+``tune_lint`` runs the autotuner and the lint on the card, in a fresh
+database under the phase's temporary directory. ``tune --dry-run`` must
+show the field on ``cuda`` for each of the three ensemble families of the
+probe configs: the default width and 64 (the port registers no width
+above K1's shared-memory window, so the JAX package's 256 is not in
+it). ``tune --n 4000 --trees 100`` then probes them,
+each candidate a child process running the family's probe configs as
+``scores planner`` does (K1 at each width): every probe must exit 0
+with a finite wall (a failed probe fails the phase, it does not lose),
+and its line carries the K1 launches of its timed run. For each family
+whose winner cleared the 2% floor, ``scores planner`` runs the family's
+probe configs under the recorded row and without it: scores bitwise
+equal, K1 launches at the tuned width and the default. ``lint`` over the
+port's package must exit 0, and ``lint --concurrency``'s static lock
+model (``analysis/concurrency.build_lock_model``) reconciles both
+``lockwatch_drill`` dumps (``obs/lockwatch.reconcile``): no cycle, every
+edge between the package's locks inside the static order, and at least
+one such edge checked.
 
 Two phases chain the collection stage (the ``setup``/``container``/
 ``run``/``tests`` layer, host code) into the card. ``collect_chain`` runs
@@ -2896,7 +2920,9 @@ def run_lockwatch_drill(tmp, plain):
     its dump must validate as the witness's document, hold the port's
     import-time locks (``kernels/build.py``, ``obs/core.py``) and the
     serving locks, and reconcile against an empty static model with no
-    cycle. ``plain`` is the drill without the witness, from this call."""
+    cycle. ``plain`` is the drill without the witness, from this call.
+    Then ``_perfdb_recovery_witness``: a second dump with an edge between
+    two of the package's locks."""
     from flake16_framework_tpu_torch.obs import lockwatch, schema
 
     path = os.path.join(tmp, "lockwatch.json")
@@ -2921,14 +2947,255 @@ def run_lockwatch_drill(tmp, plain):
              f"lockwatch dump: schema {dump.get('schema')}, missing "
              f"{sorted(want - sites)}, {len(dump['edges'])} edges, "
              f"reconcile {json.dumps(rec)[:300]}")
+    recovery = _perfdb_recovery_witness(tmp, root)
     return {"locks": len(dump["locks"]), "edges": len(dump["edges"]),
             "acquire_edges_total": sum(e[2] for e in dump["edges"]),
             "edge_sites": [[rel(a), rel(b), n] for a, b, n in dump["edges"]],
+            "perfdb_recovery": recovery,
             "foreign_releases": dump["foreign_releases"],
             "reconcile": rec, "wall_s": rep["wall_s"],
             "ready_s": rep["ready_s"], "counts": rep["counts"],
             "plain_wall_s": plain["wall_s"],
             "plain_ready_s": plain["ready_s"]}
+
+
+# The witnessed child of ``_perfdb_recovery_witness``: telemetry on, one
+# row appended to a database whose tail a dying writer tore.
+_RECOVERY_CHILD = """
+import sys
+from flake16_framework_tpu_torch import obs
+from flake16_framework_tpu_torch.obs import perfdb
+obs.configure(sys.argv[2])
+row = perfdb.make_row("cuda", "drill", "config.drill", {"fit_s": 1.0},
+                      src="lockwatch-drill", ts=1.0)
+print(perfdb.append([row], path=sys.argv[1]))
+obs.shutdown()
+"""
+
+
+def _perfdb_recovery_witness(tmp, root):
+    """A child with the witness armed appends to a performance database
+    with a torn tail under telemetry: ``perfdb.append`` cuts the tail
+    under ``_append_lock`` and emits the truncation event, which takes
+    ``obs/core``'s ``_lock``. The dump (``lockwatch-perfdb.json``) must
+    hold that edge and no cycle, and the database its one row."""
+    from flake16_framework_tpu_torch.obs import lockwatch, perfdb
+
+    db = os.path.join(tmp, "lockwatch-perfdb.jsonl")
+    path = os.path.join(tmp, "lockwatch-perfdb.json")
+    with open(db, "w") as fd:
+        fd.write('{"schema": "flake16-perfdb-v1", "backend": "cu')
+    env = dict(os.environ, PYTHONPATH=root, **{lockwatch.ENV_VAR: path})
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", _RECOVERY_CHILD, db,
+         os.path.join(tmp, "lockwatch-perfdb-telemetry")],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+    wall = time.time() - t0
+    _require(proc.returncode == 0 and proc.stdout.strip() == "1",
+             f"perfdb recovery witness: exit {proc.returncode}, "
+             f"{proc.stdout[-400:]} {proc.stderr[-1200:]}")
+    with open(path) as fd:
+        dump = json.load(fd)
+    edges = [[os.path.relpath(a, root), os.path.relpath(b, root), n]
+             for a, b, n in dump["edges"]]
+    want = [os.path.join("flake16_framework_tpu_torch", "obs", m)
+            for m in ("perfdb.py", "core.py")]
+    rows = perfdb.load(db)
+    _require(any([a.rpartition(":")[0], b.rpartition(":")[0]] == want
+                 for a, b, _ in edges)
+             and lockwatch.reconcile(dump, {"locks": {}, "edges": []},
+                                     root=root)["cycle"] is None
+             and len(rows) == 1,
+             f"perfdb recovery witness: edges {edges}, rows {len(rows)}")
+    return {"dump": path, "locks": len(dump["locks"]), "edge_sites": edges,
+            "wall_s": wall}
+
+
+TUNE_FAMILIES = ("Flake16/Random Forest", "Flake16/Extra Trees",
+                 "FlakeFlagger/Random Forest")
+TUNE_TREES = 100
+
+
+def _tuned_scores(tmp, tj, family, width, db):
+    """``scores planner`` on ``family``'s probe configs under the tuned
+    database ``db``, then with none (``F16_PERFDB=0``), the launch counts
+    set to 0 just before each run and read just after: scores bitwise
+    equal, K1 launches other than the default width's when ``width`` is
+    not the default. Returns the family's report."""
+    from flake16_framework_tpu_torch.obs import perfdb
+    from flake16_framework_tpu_torch.parallel import planner
+    from flake16_framework_tpu_torch.perf import probe
+
+    fs_name, model = family.split("/", 1)
+    configs = [k for k in probe.CONFIGS if (k[1], k[4]) == (fs_name, model)]
+    shape = planner.plan_shape(fs_name, model, n=N_TESTS, n_folds=10)
+    _require(perfdb.tuned_fit_overrides("cuda", shape, model=model, path=db)
+             == {"node_batch": width}, f"{family}: tuned row not consulted")
+    tag = family.replace("/", "-").replace(" ", "_")
+    runs = {}
+    try:
+        for name, where in (("tuned", db), ("untuned", "0")):
+            os.environ[perfdb.DB_ENV] = where
+            t0 = time.time()
+            scores, launches, _, _, _ = _run_scores(
+                tj, os.path.join(tmp, f"scores-tune-{tag}-{name}.pkl"),
+                configs, planner=True)
+            runs[name] = (scores, launches, time.time() - t0)
+    finally:
+        os.environ[perfdb.DB_ENV] = "0"
+    (tuned, tl, tw), (plain, pl, pw) = runs["tuned"], runs["untuned"]
+    for k in configs:
+        _require(pickle.dumps(tuned[k][2:]) == pickle.dumps(plain[k][2:]),
+                 f"{family}: {k} scores differ under the tuned row")
+    _require(tl["hist_cumsum"] > 0 and (width == NODE_BATCH or tl[
+        "hist_cumsum"] != pl["hist_cumsum"]),
+        f"{family}: K1 {tl} at width {width} against {pl}")
+    return {"family": family, "configs": ["/".join(k) for k in configs],
+            "width": width, "tuned_launches": tl, "untuned_launches": pl,
+            "tuned_wall_s": tw, "untuned_wall_s": pw}
+
+
+def run_tune_lint(tmp, tj):
+    """The autotuner and the lint on the card (the module docstring's
+    ``tune_lint``). Returns (launches by sub-path, report); the probes'
+    launches are those their lines report (one timed run each, in the
+    probe's own process), the scores runs' are read here."""
+    from flake16_framework_tpu_torch.analysis import concurrency as conc
+    from flake16_framework_tpu_torch.analysis.cli import lint_main
+    from flake16_framework_tpu_torch.obs import lockwatch, perfdb
+    from flake16_framework_tpu_torch.perf import tuner
+
+    db = os.path.join(tmp, "tune-perfdb.jsonl")
+    argv = ["--n", str(N_TESTS), "--trees", str(TUNE_TREES), "--db", db]
+    buf = io.StringIO()
+    _require(tuner.tune_main(argv + ["--dry-run"], out=buf) == 0,
+             "tune --dry-run")
+    dry = json.loads(buf.getvalue())
+    field = ["base", f"F16_HIST_NODE_BATCH={TUNED_NODE_BATCH}"]
+    _require(dry["backend"] == "cuda"
+             and sorted(dry["families"]) == sorted(TUNE_FAMILIES)
+             and all(f["candidates"] == field
+                     for f in dry["families"].values()),
+             f"tune --dry-run: {json.dumps(dry)[:800]}")
+
+    buf = io.StringIO()
+    t0 = time.time()
+    code = tuner.tune_main(argv + ["--timeout", "300"], out=buf)
+    tune_s = time.time() - t0
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    probes = [dict(p, family=fam) for fam, f in summary["families"].items()
+              for p in f["probes"]]
+    _require(code == 0 and len(probes) == 2 * len(TUNE_FAMILIES)
+             and not any(tuner.probe_failed(p) for p in probes)
+             and all(p["launches"]["hist_cumsum"] > 0 and p["knobs"].get(
+                 "F16_HIST_NODE_BATCH") == p["candidate"].get(
+                     "F16_HIST_NODE_BATCH") for p in probes),
+             f"tune: exit {code}, probes {json.dumps(probes)[:1500]}")
+    probe_launches = {k: sum(p["launches"][k] for p in probes)
+                      for k in ("hist_cumsum", "treeshap_unit")}
+    rows = perfdb.load(db) if os.path.exists(db) else []
+    recorded = [fam for fam, f in summary["families"].items()
+                if f["recorded_crc"]]
+    _require(len(rows) == len(recorded)
+             and all(r["tuned"] and r["backend"] == "cuda" for r in rows),
+             f"tune rows {rows} against winners {recorded}")
+    t0 = time.time()
+    tuned = [_tuned_scores(tmp, tj, fam, int(summary["families"][fam][
+        "env"]["F16_HIST_NODE_BATCH"]), db) for fam in recorded]
+    scores_s = time.time() - t0
+    scores_launches = {k: sum(t["tuned_launches"][k] + t["untuned_launches"][
+        k] for t in tuned) for k in ("hist_cumsum", "treeshap_unit")}
+
+    out = io.StringIO()
+    t0 = time.time()
+    code = lint_main(["--json"], out=out)
+    lint_s = time.time() - t0
+    rep = json.loads(out.getvalue())
+    _require(code == 0 and rep["findings"] == [],
+             f"lint: exit {code}, {json.dumps(rep['findings'])[:800]}")
+    out = io.StringIO()
+    t0 = time.time()
+    conc_code = lint_main(["--concurrency", "--json"], out=out)
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = conc.build_lock_model([os.path.join(
+        root, "flake16_framework_tpu_torch")])
+    conc_s = time.time() - t0
+    recs = {}
+    for name in ("lockwatch.json", "lockwatch-perfdb.json"):
+        with open(os.path.join(tmp, name)) as fd:
+            dump = json.load(fd)
+        recs[name] = (dump, lockwatch.reconcile(dump, model, root=root))
+    _require(conc_code == 0 and all(
+        rec["ok"] and rec["cycle"] is None and not rec["violations"]
+        for _, rec in recs.values())
+        and recs["lockwatch-perfdb.json"][1]["checked_edges"] > 0,
+        f"lint --concurrency exit {conc_code}; reconcile "
+        f"{json.dumps([r for _, r in recs.values()])[:1200]}")
+    return {"tune_probes": probe_launches, "tune_scores": scores_launches}, {
+        "dry_run": dry["families"], "tune_s": tune_s,
+        "families": {fam: {k: f[k] for k in (
+            "winner", "env", "wall_s", "base_wall_s", "gain_pct", "shape",
+            "recorded_crc")} for fam, f in summary["families"].items()},
+        "probes": probes, "probe_launches": probe_launches,
+        "tuned_scores": tuned, "tuned_scores_s": scores_s,
+        "lint": {"files": rep["counts"]["files"],
+                 "findings": len(rep["findings"]),
+                 "suppressed_inline": rep["counts"]["suppressed_inline"],
+                 "suppressed_baseline": rep["counts"]["suppressed_baseline"],
+                 "rules": len(rep["rules"]), "wall_s": lint_s},
+        "concurrency": {"lock_sites": len(model["locks"]),
+                        "static_edges": len(model["edges"]),
+                        "wall_s": conc_s, "dumps": {name: {
+                            "dynamic_edges": len(dump["edges"]),
+                            "dynamic_locks": len(dump["locks"]),
+                            "known_locks": rec["known_locks"],
+                            "checked_edges": rec["checked_edges"],
+                            "unmatched_edges": rec["foreign_edges"],
+                            "violations": rec["violations"],
+                            "cycle": rec["cycle"]}
+                            for name, (dump, rec) in recs.items()}}}
+
+
+def print_tune_lint(tl, smi):
+    for fam, f in tl["dry_run"].items():
+        print(f"tune --dry-run {fam} ({f['shape']}): field "
+              f"{f['candidates']}", flush=True)
+    for p in tl["probes"]:
+        print(f"tune probe {p['family']} {json.dumps(p['candidate'])} "
+              f"({smi}): wall {p['wall_s']:.4f} s (walls {p['walls']}), "
+              f"exit {p['rc']}, K1 {p['launches']['hist_cumsum']} launches "
+              f"a run", flush=True)
+    for fam, f in tl["families"].items():
+        print(f"tune {fam}: winner {f['winner']} {json.dumps(f['env'])}, "
+              f"{f['wall_s']} s against base {f['base_wall_s']} s "
+              f"({f['gain_pct']:+.2f}%), "
+              + ("recorded" if f["recorded_crc"] else
+                 "no candidate cleared the 2% floor, no row"), flush=True)
+    print(f"tune: {tl['tune_s']:.2f} s for {len(tl['probes'])} probes, K1 "
+          f"{tl['probe_launches']['hist_cumsum']} launches in their timed "
+          f"runs", flush=True)
+    for t in tl["tuned_scores"]:
+        print(f"tune scores planner {t['family']} ({smi}): width "
+              f"{t['width']} K1 {t['tuned_launches']['hist_cumsum']} "
+              f"launches, {t['tuned_wall_s']:.2f} s; untuned K1 "
+              f"{t['untuned_launches']['hist_cumsum']}, "
+              f"{t['untuned_wall_s']:.2f} s; scores bitwise equal",
+              flush=True)
+    li, c = tl["lint"], tl["concurrency"]
+    print(f"lint: {li['files']} files, {li['findings']} findings, "
+          f"{li['suppressed_inline']} inline suppressions, "
+          f"{li['suppressed_baseline']} baseline, {li['rules']} rules, "
+          f"{li['wall_s']:.2f} s", flush=True)
+    print(f"lint --concurrency: {c['lock_sites']} lock sites, "
+          f"{c['static_edges']} static edges, {c['wall_s']:.2f} s",
+          flush=True)
+    for name, d in c["dumps"].items():
+        print(f"reconcile {name}: {d['dynamic_locks']} locks, "
+              f"{d['dynamic_edges']} dynamic edges: {d['checked_edges']} "
+              f"between modeled locks, {d['unmatched_edges']} unmatched, "
+              f"{len(d['violations'])} violations, cycle {d['cycle']}; "
+              f"known locks {len(d['known_locks'])}", flush=True)
 
 
 def print_new_phases(met, serve_load, pdb, lw, smi):
@@ -2972,6 +3239,10 @@ def print_new_phases(met, serve_load, pdb, lw, smi):
           f"(ready {lw['ready_s']:.2f} s) against {lw['plain_wall_s']:.2f} s"
           f" (ready {lw['plain_ready_s']:.2f} s) without the witness; "
           f"requests {json.dumps(lw['counts'])}", flush=True)
+    rw = lw["perfdb_recovery"]
+    print(f"lockwatch perfdb recovery ({smi}): {rw['locks']} lock sites, "
+          f"edges {json.dumps(rw['edge_sites'])}, no cycle; child wall "
+          f"{rw['wall_s']:.2f} s", flush=True)
 
 
 def print_telemetry(tel, launches, smi):
@@ -3245,6 +3516,9 @@ def main():
             serve_feats)
         lap("perfdb_path")
         print_new_phases(met, serve["load"], pdb, lw, smi)
+        tune_launches, tl = run_tune_lint(tmp, tj)
+        lap("tune_lint")
+        print_tune_lint(tl, smi)
         fleet_launches, fleet_rep, fleet_answers = run_fleet_path(
             tmp, serve_reg, serve_feats)
         fleet_rep["values"] = check_fleet_values(fleet_answers, serve_reg,
@@ -3336,6 +3610,7 @@ def main():
              "serve": serve_launches, "fleet": fleet_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"],
              "metrics": metrics_launches, **perfdb_launches,
+             **tune_launches,
              "collect_chain": chain_launches, "collate_scale": scale_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
@@ -3360,7 +3635,8 @@ def main():
               "shap_grid_explain_profiles": explains, "serve_path": serve,
               "fleet_path": fleet_rep, "fleet_drill": drill,
               "metrics_path": met, "perfdb_path": pdb,
-              "lockwatch_drill": lw, "collect_chain": chain,
+              "lockwatch_drill": lw, "tune_lint": tl,
+              "collect_chain": chain,
               "collate_scale": scale,
               "profile": prof, "phases_s": phases,
               "torch": torch.__version__,

@@ -49,7 +49,18 @@ trajectory, and ``lookup BACKEND SHAPE [KERNEL] [--json]`` prints the
 best-known knob row that the planner (``plan_pad_to``), the plan
 executor (the hist grower's window width) and ``serve`` (its warm
 buckets) consult. Like ``report``, ``trace`` and the four collection
-verbs, it starts no telemetry run."""
+verbs, it starts no telemetry run.
+
+``... tune [--family FS/MODEL] [--n N] [--trees T] [--backend cuda|cpu]
+[--db PATH] [--dry-run] ...`` is the autotuner (``perf/tuner.py``): it
+probes the hist grower's window widths in child processes on the card
+(``--backend cpu`` is the explicit request for the CPU; without CUDA and
+without it, ``tune`` raises) and records each winner as a ``tuned`` row
+that ``scores planner`` consults. ``... lint [PATHS] [--json]
+[--baseline F] [--telemetry PATH] [--rules] [--concurrency]`` is the
+static analysis (``analysis/``; exit 1 on findings). Neither starts a
+telemetry run. ``bench`` and ``audit`` are the JAX package's and are
+refused (ROADMAP.md)."""
 
 import os
 import sys
@@ -104,7 +115,18 @@ def _shap(args):
 
 
 _COMMANDS = ("setup", "container", "run", "tests", "scores", "resume",
-             "shap", "figures", "serve", "report", "trace", "perf")
+             "shap", "figures", "serve", "report", "trace", "perf", "tune",
+             "lint")
+
+# The JAX package's verbs this port refuses, with the reason.
+_REFUSED = {
+    "bench": "bench --gate gates the JAX package's BENCH_r*.json "
+             "trajectory; the port's benchmark is not built yet "
+             "(ROADMAP.md §A 2)",
+    "audit": "audit walks jaxprs in the JAX package; the port's "
+             "counterpart over torch.export graphs is not built yet "
+             "(ROADMAP.md §A 7)",
+}
 
 
 def _host_verb(command, args):
@@ -138,6 +160,8 @@ def main(argv=None):
     command, *args = argv
     from flake16_framework_tpu_torch import obs
 
+    if command in _REFUSED:
+        raise ValueError(f"{command}: {_REFUSED[command]}")
     if command not in _COMMANDS:
         raise ValueError(f"Unrecognized command {command!r} (this slice "
                          f"of the port has: {', '.join(_COMMANDS)})")
@@ -155,6 +179,17 @@ def main(argv=None):
         from flake16_framework_tpu_torch.obs.perf_diff import perf_main
 
         perf_main(args)
+        return
+    if command in ("tune", "lint"):
+        if command == "tune":
+            from flake16_framework_tpu_torch.perf.tuner import tune_main \
+                as verb_main
+        else:
+            from flake16_framework_tpu_torch.analysis.cli import lint_main \
+                as verb_main
+        code = verb_main(args)
+        if code:
+            raise SystemExit(code)
         return
     if command in ("setup", "container", "run", "tests"):
         _host_verb(command, args)

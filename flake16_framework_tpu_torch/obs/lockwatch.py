@@ -6,11 +6,9 @@ before any of its locks is created): wraps the ``threading.Lock``/
 stack of held locks and every *order edge* — lock B acquired while A is
 held. Each lock is identified by its **creation site** (``path:lineno``
 of the first non-``threading`` frame at construction), the join key of
-the JAX package's static lock model, so :func:`reconcile` can check that
-the dynamic graph observed during a serve drill is cycle-free AND a
-subgraph of a statically allowed order. The port has no static pass
-yet (ROADMAP.md §A 7): against an empty model, ``reconcile`` is the
-cycle check alone.
+the static lock model (``analysis/concurrency.build_lock_model``), so
+:func:`reconcile` can check that the dynamic graph observed during a
+serve drill is cycle-free AND a subgraph of a statically allowed order.
 
 Because ``Condition``/``Event``/``Semaphore``/``queue.Queue`` build on
 the patched factories *by runtime lookup*, their internal locks are
@@ -244,10 +242,9 @@ def _rel_site(site, root):
 
 
 def reconcile(dynamic, static_model, root=None):
-    """Check a :func:`snapshot` document against a static lock model in
-    the JAX package's format (``{"locks": {id: {"site": ...}}, "edges":
-    [[idA, idB], ...]}``; the port has no static pass yet, so its own
-    checks pass ``{"locks": {}, "edges": []}``). Returns::
+    """Check a :func:`snapshot` document against the static lock model
+    (``analysis/concurrency.build_lock_model``, the JAX package's
+    format). Returns::
 
         {"ok": bool, "cycle": [site, ...] | None,
          "known_locks": [lock_id, ...],           # dynamically observed
@@ -259,15 +256,18 @@ def reconcile(dynamic, static_model, root=None):
     statically allowed order path: ``why="inverted"`` marks a dynamic
     edge whose *reverse* the static model orders (a latent deadlock
     against some other code path), ``why="unmodeled"`` an edge the
-    static model never derived. ``root`` relativizes absolute sites
-    recorded by a child process run from a different CWD."""
+    static pass never derived (its call-graph blind spot — model it or
+    fix the nesting). ``root`` relativizes absolute sites recorded by a
+    child process run from a different CWD."""
+    from flake16_framework_tpu_torch.analysis import concurrency as conc
+
     dyn_edges = [(e[0], e[1]) for e in dynamic.get("edges", ())]
-    cycle = find_edge_cycle(dyn_edges)
+    cycle = conc.find_edge_cycle(dyn_edges)
 
     site_to_id = {}
     for lid, rec in static_model.get("locks", {}).items():
         site_to_id[_rel_site(rec["site"], root)] = lid
-    closure = transitive_closure(static_model.get("edges", ()))
+    closure = conc.transitive_closure(static_model.get("edges", ()))
 
     known, violations, checked, foreign = set(), [], 0, 0
     for (a, b) in dyn_edges:
@@ -294,59 +294,3 @@ def reconcile(dynamic, static_model, root=None):
         "checked_edges": checked,
         "foreign_edges": foreign,
     }
-
-
-# -- graph helpers (copies of the JAX package's analysis/concurrency.py) --
-
-
-def transitive_closure(edges):
-    """{a: set of ids reachable from a} over [a, b] pairs."""
-    adj = {}
-    for a, b in edges:
-        adj.setdefault(a, set()).add(b)
-    closure = {}
-    for a in adj:
-        seen, todo = set(), [a]
-        while todo:
-            v = todo.pop()
-            for w in adj.get(v, ()):
-                if w not in seen:
-                    seen.add(w)
-                    todo.append(w)
-        closure[a] = seen
-    return closure
-
-
-def find_edge_cycle(edges):
-    """One cycle (as a list of nodes) in [a, b] pairs, or None."""
-    adj = {}
-    for a, b in edges:
-        adj.setdefault(a, set()).add(b)
-    WHITE, GREY, BLACK = 0, 1, 2
-    color = {v: WHITE for v in adj}
-    parent = {}
-
-    def dfs(v):
-        color[v] = GREY
-        for w in sorted(adj.get(v, ())):
-            if color.get(w, WHITE) == WHITE:
-                parent[w] = v
-                hit = dfs(w)
-                if hit:
-                    return hit
-            elif color.get(w) == GREY:
-                cyc, cur = [w], v
-                while cur != w:
-                    cyc.append(cur)
-                    cur = parent[cur]
-                cyc.reverse()
-                return cyc
-        color[v] = BLACK
-        return None
-
-    for v in sorted(adj):
-        if color[v] == WHITE:
-            hit = dfs(v)
-            if hit:
-                return hit
-    return None

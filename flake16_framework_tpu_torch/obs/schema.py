@@ -15,10 +15,11 @@ Three documents exist per run:
 
 Validation is permissive on EXTRA fields (events may carry arbitrary
 context like config keys) and strict on required fields and their types.
-Two more documents share the family: the performance database's rows
-(PERFDB_SCHEMA, ``obs/perfdb.py``) and the lock-order witness's dump
-(LOCKWATCH_SCHEMA, ``obs/lockwatch.py``). The lint and audit reports'
-validators come with the port's analysis tooling (ROADMAP.md §A 7).
+Three more documents share the family: the performance database's rows
+(PERFDB_SCHEMA, ``obs/perfdb.py``), the lock-order witness's dump
+(LOCKWATCH_SCHEMA, ``obs/lockwatch.py``) and the ``lint --json`` report
+(LINT_SCHEMA, ``analysis/engine.py``). The audit report's validator waits
+for the port's audit (ROADMAP.md §A 7).
 """
 
 EVENTS_FILE = "events.jsonl"
@@ -27,6 +28,10 @@ MANIFEST_FILE = "manifest.json"
 TELEMETRY_SCHEMA = "flake16-telemetry-v1"
 MANIFEST_SCHEMA = "flake16-run-manifest-v1"
 REPORT_SCHEMA = "flake16-report-v1"
+# The ``lint --json`` document (analysis/engine.LintResult.to_report) — a
+# member of this same schema family so the drift lint validates its own
+# reports (analysis/rules_obs.check_json_file).
+LINT_SCHEMA = "flake16-lint-report-v1"
 # The JAX package's ``audit --json`` document, which the performance
 # database ingests (its memory envelopes; obs/perfdb.rows_from_audit).
 AUDIT_SCHEMA = "flake16-audit-report-v1"
@@ -103,6 +108,13 @@ REPORT_FIELDS = {
 # Required numeric per-span stats in a report's ``spans`` values.
 REPORT_SPAN_FIELDS = {"n", "cold_n", "total_s", "compile_est_s", "execute_s"}
 
+LINT_FIELDS = {"schema": str, "findings": list, "counts": dict,
+               "rules": dict}
+LINT_FINDING_FIELDS = {"rule": str, "severity": str, "path": str,
+                       "line": int, "col": int, "message": str}
+LINT_COUNT_FIELDS = ("errors", "warnings", "suppressed_inline",
+                     "suppressed_baseline", "files")
+
 
 def _check_fields(obj, fields, problems, ctx):
     for name, types in fields.items():
@@ -137,6 +149,30 @@ def validate_manifest(obj):
     if obj.get("schema") not in (None, MANIFEST_SCHEMA):
         problems.append(
             f"manifest: schema {obj.get('schema')!r} != {MANIFEST_SCHEMA!r}")
+    return problems
+
+
+def validate_lint_report(obj):
+    """Problems with one ``lint --json`` document (empty list = valid)."""
+    problems = []
+    if not isinstance(obj, dict):
+        return [f"lint report is {type(obj).__name__}, want object"]
+    _check_fields(obj, LINT_FIELDS, problems, "lint report")
+    if obj.get("schema") != LINT_SCHEMA:
+        problems.append(
+            f"lint report: schema {obj.get('schema')!r} != {LINT_SCHEMA!r}")
+    for i, f in enumerate(obj.get("findings") or ()):
+        if not isinstance(f, dict):
+            problems.append(f"lint report: findings[{i}] is not an object")
+            continue
+        _check_fields(f, LINT_FINDING_FIELDS, problems,
+                      f"lint report: findings[{i}]")
+    counts = obj.get("counts")
+    if isinstance(counts, dict):
+        for name in LINT_COUNT_FIELDS:
+            if not isinstance(counts.get(name), int):
+                problems.append(
+                    f"lint report: counts[{name!r}] missing or not int")
     return problems
 
 

@@ -13,7 +13,8 @@ from flake16_framework_tpu_torch.config import PREP_NONE, PREP_SCALING, PREP_PCA
 from flake16_framework_tpu_torch.ops.trees import _fma
 
 
-WINDOW = 32
+# XLA:CPU's summation window, a fidelity constant and not a tunable.
+WINDOW = 32  # f16lint: disable=G108 (XLA:CPU's bits, not a tunable)
 
 
 def _colsum(x):

@@ -258,11 +258,15 @@ class SweepEngine:
                                               tree_chunk=tree_chunk,
                                               **p["fit_kw"])
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    # The fold's train clock stops after its fit.
+                    torch.cuda.synchronize(  # f16lint: disable=J402
+                        self.device)
                 t1 = time.time()
             with obs.span("scores.score", key=(*family, "staged"),
                           stage="predict", config=name, fold=f):
-                counts_by_fold[f] = confusion_by_project(
+                # One host read a fold: the fold is journaled before the
+                # next one runs (the staged path's resume granularity).
+                counts_by_fold[f] = confusion_by_project(  # f16lint: disable=J402
                     p["y"], trees.predict(forest, p["xp"])[None],
                     test_mask[f:f + 1], self.project_ids,
                     len(self.project_names)).cpu().numpy()

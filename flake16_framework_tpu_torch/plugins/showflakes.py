@@ -71,7 +71,7 @@ class _ShowFlakes:
         if self.record_file:
             # standalone plugin (runs inside subject venvs): no package
             # imports, so no utils.atomic_write here
-            with open(self.record_file, "w") as fd:
+            with open(self.record_file, "w") as fd:  # f16lint: disable=J701
                 for nid, outcome in self.outcomes.items():
                     fd.write(f"{outcome}\t{nid}\n")
         if self.set_exitstatus and exitstatus == pytest.ExitCode.TESTS_FAILED:

@@ -217,13 +217,14 @@ class _TestInspect:
     def _write_tsv(self):
         # standalone plugin (runs inside subject venvs): no package
         # imports, so no utils.atomic_write here
-        with open(self.base + ".tsv", "w") as fd:
+        with open(self.base + ".tsv", "w") as fd:  # f16lint: disable=J701
             for nid, vals in self.rusage.items():
                 fd.write("\t".join(str(v) for v in vals) + f"\t{nid}\n")
 
     def _write_pickle(self):
         churn = git_churn(self.root) or {}
-        with open(self.base + ".pkl", "wb") as fd:
+        # standalone plugin: no package imports, no utils.atomic_write
+        with open(self.base + ".pkl", "wb") as fd:  # f16lint: disable=J701
             pickle.dump(
                 (self.fn_ids, self.fn_data, self.test_files, churn), fd
             )

@@ -196,7 +196,9 @@ class DispatchGuard:
                 if torch is not None:
                     torch.cuda.set_device(index)
                 box["out"] = self._finish(thunk())
-            except BaseException as e:  # must cross the thread boundary
+            # The guard is the resilience layer: the exception crosses to
+            # the caller's thread, where the guard classifies it.
+            except BaseException as e:  # f16lint: disable=J501
                 box["exc"] = e
 
         t = threading.Thread(target=work, daemon=True,

@@ -201,7 +201,8 @@ class Microbatcher:
             self._fail_batch(batch, e)
             return
 
-        host = out.cpu().numpy()
+        # The one device->host crossing of a microbatch.
+        host = out.cpu().numpy()  # f16lint: disable=J601
         t_done = time.perf_counter()
         off = 0
         for r in batch:

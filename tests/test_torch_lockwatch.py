@@ -117,9 +117,10 @@ def test_dynamic_cycle_and_foreign_locks(traced):
 ])
 def test_graph_helpers_equal_jax(edges):
     from flake16_framework_tpu.analysis import concurrency as jconc
+    from flake16_framework_tpu_torch.analysis import concurrency as conc
 
-    assert lockwatch.find_edge_cycle(edges) == jconc.find_edge_cycle(edges)
-    assert lockwatch.transitive_closure(edges) == \
+    assert conc.find_edge_cycle(edges) == jconc.find_edge_cycle(edges)
+    assert conc.transitive_closure(edges) == \
         jconc.transitive_closure(edges)
 
 

@@ -117,7 +117,9 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="No command"):
         tmain.main([])
     with pytest.raises(ValueError, match="Unrecognized command"):
-        tmain.main(["tune"])
+        tmain.main(["tnue"])
+    with pytest.raises(ValueError, match="not built yet"):
+        tmain.main(["audit"])
     with pytest.raises(ValueError, match="Unrecognized shap option"):
         tmain.main(["shap", "gird"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):
