@@ -11,18 +11,18 @@ timed on the grower's real BFS steps: every step of the first fold's fit
 of each ensemble ``scores`` config, recorded at full width. The exact
 grower's fold-0 forest of the first Decision Tree config is held bitwise
 against the CPU's and profiled alone, for its launches a level. The
-ensemble configs and the first Decision Tree config then run once more
-under the profiler, for the kernels' shares of device time.
+first ensemble config and the first Decision Tree config then run once
+more under the profiler, for the kernels' shares of device time.
 
-The ``telemetry_path`` phase runs the scores path's four configs and
-the ``shap`` verb on the paper configs once more, in a child process with
+The ``telemetry_path`` phase runs the scores path's RF config and the
+``shap`` verb on the paper configs once more, in a child process with
 telemetry on (``F16_TELEMETRY``) and ``profile=``: its scores and SHAP
 values must equal the untelemetered paths', every event and the manifest
 be valid (backend ``cuda``, the card's name), ``report --json``,
 ``report --attrib`` and ``trace`` read the run, the fit and explain
 spans' ``k1_launches``/``k2_launches`` sum to the wrappers' counts, and
 each profile's CUDA kernel slices hold K1 and K2 as many times as the
-wrappers counted. The four configs then run four more times here,
+wrappers counted. The RF config then runs four more times here,
 telemetry on, off, off, on, for telemetry's cost to the config walls.
 The card's scaler is held bitwise against the CPU's in the small
 reference.
@@ -100,19 +100,41 @@ database under the phase's temporary directory. ``tune --dry-run`` must
 show the field on ``cuda`` for each of the three ensemble families of the
 probe configs: the default width and 64 (the port registers no width
 above K1's shared-memory window, so the JAX package's 256 is not in
-it). ``tune --n 4000 --trees 100`` then probes them,
-each candidate a child process running the family's probe configs as
-``scores planner`` does (K1 at each width): every probe must exit 0
-with a finite wall (a failed probe fails the phase, it does not lose),
-and its line carries the K1 launches of its timed run. For each family
-whose winner cleared the 2% floor, ``scores planner`` runs the family's
-probe configs under the recorded row and without it: scores bitwise
-equal, K1 launches at the tuned width and the default. ``lint`` over the
+it). ``tune --n 4000 --trees 100 --family 'Flake16/Random Forest'`` then
+probes the first family, each candidate a child process running the
+family's probe configs as ``scores planner`` does (K1 at each width):
+every probe must exit 0 with a finite wall (a failed probe fails the
+phase, it does not lose), and its line carries the K1 launches of its
+timed run. If the winner cleared the 2% floor, ``scores planner`` runs
+the family's probe configs under the recorded row and without it: scores
+bitwise equal, K1 launches at the tuned width and the default. ``lint``
+over the
 port's package must exit 0, and ``lint --concurrency``'s static lock
 model (``analysis/concurrency.build_lock_model``) reconciles both
 ``lockwatch_drill`` dumps (``obs/lockwatch.reconcile``): no cycle, every
 edge between the package's locks inside the static order, and at least
 one such edge checked.
+
+``audit_path`` follows ``tune_lint``, in a temporary directory with its
+own performance database. ``python -m flake16_framework_tpu_torch audit
+--json`` runs as a child process with a time limit, on ``cuda`` at the
+audit's defaults (the whole grid, n = 120, 2 trees, depth 8, 16 explained):
+every real entry point under the recorder (``analysis/ir.py``): the plan
+executors (``scores planner``'s ``run_grid`` and ``shap grid`` in each
+mode), the serving entries and the SHAP engines. It must exit 0 with no
+finding, the static census must equal the plan windows the executor
+opened in both arms, K1 must launch in every hist-family plan entry and
+in none of the Decision Tree scores entries, K2 in the path-mode SHAP
+entries, ``shap.path`` and ``serve.shap``, and each entry's recorded peak
+must be at most the allocator's own peak over its window. ``lint --ir``
+(the same audit folded into the lint) runs as a second child, started
+with the first, and must exit 0. The audit's document then feeds the
+tuner: ``perf ingest`` puts its envelopes (at the card's width, 128) into
+the phase's database; ``tune --dry-run`` at the default memory cap vetoes
+no width, and with the cap between the anchor envelope scaled to width
+64 and to width 128 it vetoes 128 and keeps 64. A seeded entry
+(``torch.histc`` on ``cuda``, then ``.cpu()``), recorded here, must raise
+I201 (deterministic mode flags the op) and I101 (the move).
 
 Two phases chain the collection stage (the ``setup``/``container``/
 ``run``/``tests`` layer, host code) into the card. ``collect_chain`` runs
@@ -124,9 +146,9 @@ the labels, runs ``write_scores`` on the card for an RF (K1) and a
 Decision Tree config at full width (the card's scores equal to the
 CPU's), ``write_shap`` on the card and ``write_figures`` on the result.
 ``collate_scale`` writes the plugins' artifacts of the synthetic dataset
-at the study's run counts (26 projects, 2,500 + 2,500 + 1 runs a project:
-130,078 files; 2000 tests, about 10 M outcome lines) with the generator of
-``tests/torch_collect_cases.py``, runs ``python -m
+at the study's run counts (2,500 + 2,500 + 1 runs a project; 400 tests
+over 8 projects: 40,024 files, 2.1 M outcome lines) with the
+generator of ``tests/torch_collect_cases.py``, runs ``python -m
 flake16_framework_tpu_torch tests`` on them in a child process (its
 output must equal the generator's expected ``tests.json``; wall and
 lines/s printed), removes the data and runs
@@ -169,6 +191,13 @@ DT_CONFIGS = (
     ("OD", "Flake16", "PCA", "SMOTE Tomek", "Decision Tree"),
 )
 LOPO_CONFIGS = (MAIN_CONFIGS[0], DT_CONFIGS[0])
+# The telemetry phases' config: the scores path's RF config. The
+# profiled run's device trace grows with the configs' kernel launches (830
+# MB for all four, 364 MB for the RF and a DT config, written by the
+# child and parsed here).
+TELEMETRY_CONFIGS = MAIN_CONFIGS[:1]
+# The configs profiled whole at the end of the run: one of each grower.
+PROFILED_CONFIGS = (MAIN_CONFIGS[0], DT_CONFIGS[0])
 # The whole-grid SHAP phase: the two paper SHAP configs (ET, RF) and a
 # Decision Tree.
 GRID_CONFIGS = (
@@ -499,8 +528,10 @@ def unit_report(members):
     forest, (keys, forest, x [S, F]) each, at the member's S. The plain
     version walks a bucket in row batches (``PLAIN_ROWS``) and sums them.
     Two kernel runs must be bitwise equal. ``ms`` and ``plain_ms`` are
-    timed on the same inputs; the bound is the operations of these inputs
-    (``unit_ops``) or their bytes, whichever is larger."""
+    timed on the same inputs, ``plain_ms`` on the one plain call that the
+    kernel is held against (seconds a bucket at S = 4000); the bound is
+    the operations of these inputs (``unit_ops``) or their bytes,
+    whichever is larger."""
     from flake16_framework_tpu_torch.kernels.treeshap_unit import (
         unit_shap, unit_shap_plain,
     )
@@ -512,8 +543,10 @@ def unit_report(members):
         for cap, args in bucket_inputs(forest, x.shape[1]):
             got = unit_shap(*args, x)
             again = unit_shap(*args, x)
-            want = unit_shap_plain(*args, x)
-            torch.cuda.synchronize()
+            plain = []
+            plain_ms = _cuda_ms(lambda: plain.append(
+                unit_shap_plain(*args, x)), reps=1, warm=0)
+            want = plain.pop()
             if not torch.equal(got, again):
                 raise AssertionError(f"treeshap_unit cap {cap}: two runs "
                                      f"differ")
@@ -537,8 +570,7 @@ def unit_report(members):
                 "o1_share": float(n1.sum()) / float(u.sum()) / x.shape[0],
                 "max_abs_err": err, "max_abs_plain": ref,
                 "ms": ms,
-                "plain_ms": _cuda_ms(lambda: unit_shap_plain(*args, x),
-                                     reps=1, warm=0),
+                "plain_ms": plain_ms,
                 "ops": ops,
                 "ops_division": unit_ops_division(u, x.shape[0]),
                 "bound_share": ops / F32_OPS_PER_S * 1e3 / ms,
@@ -872,11 +904,12 @@ def _kernel_counts(summary):
 
 
 def run_telemetry_path(tmp, tj, ref):
-    """The scores path's four configs and the shap verb on the paper
-    configs at full width, in a child process with telemetry on and
-    ``profile=``: the scores equal the scores path's, every event and the
-    manifest are valid (backend cuda, the card's name), ``report --json``
-    (valid), ``report --attrib`` and ``trace`` read the run, the fit spans'
+    """``TELEMETRY_CONFIGS`` (the scores path's RF config) and the shap
+    verb on the paper configs at full width, in
+    a child process with telemetry on and ``profile=``: the scores equal
+    the scores path's, every event and the manifest are valid (backend
+    cuda, the card's name), ``report --json`` (valid), ``report
+    --attrib`` and ``trace`` read the run, the fit spans'
     ``k1_launches`` and the explain spans' ``k1``/``k2_launches`` sum to the
     child's counts, and each profile's CUDA kernel slices hold K1 and K2
     as many times as the wrappers counted. Returns the launches, the
@@ -886,7 +919,7 @@ def run_telemetry_path(tmp, tj, ref):
 
     out_dir = os.path.join(tmp, "telemetry")
     os.makedirs(out_dir)
-    configs = MAIN_CONFIGS + DT_CONFIGS
+    configs = TELEMETRY_CONFIGS
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)), F16_TELEMETRY=os.path.join(out_dir, "tel"))
     env.pop("F16_FAULT_INJECT", None)
@@ -974,13 +1007,13 @@ def run_telemetry_path(tmp, tj, ref):
 
 
 def time_telemetry(tmp, tj):
-    """The scores path's four configs run four more times in this process,
+    """``TELEMETRY_CONFIGS`` run four more times in this process,
     telemetry on, off, off, on (two pairs in turns): each config's wall
     (at its progress line) in each run, and each pair's on/off ratio of the
     configs' summed walls."""
     from flake16_framework_tpu_torch import obs
 
-    configs = MAIN_CONFIGS + DT_CONFIGS
+    configs = TELEMETRY_CONFIGS
     runs = []
     for i, mode in enumerate(("on", "off", "off", "on")):
         if mode == "on":
@@ -1332,9 +1365,9 @@ def run_shap_grid_path(tmp, tj):
 
 
 def profile_explains(members):
-    """Each ensemble member's explain in each mode (``x`` its first 64
-    preprocessed samples, the interventional background their first 32)
-    timed once unprofiled, after one warm run, and once more under the
+    """The Extra Trees member's explain (the widest forest) in each mode
+    (``x`` its first 64 preprocessed samples, the interventional
+    background their first 32) timed once unprofiled, after one warm run, and once more under the
     profiler: wall, launches, device busy time, idle share and the top
     kernels."""
     from flake16_framework_tpu_torch.ops import treeshap
@@ -1347,7 +1380,7 @@ def profile_explains(members):
     }
     out = []
     for keys, forest, x in members:
-        if keys[4] == "Decision Tree":
+        if keys[4] != "Extra Trees":
             continue
         for mode, fn in engines.items():
             fn(forest, x)
@@ -2077,11 +2110,14 @@ CHAIN_CONFIGS = (
     ("NOD", "Flake16", "None", "None", "Decision Tree"),
 )
 CHAIN_RUNS = {"baseline": 4, "shuffle": 2, "testinspect": 1}
-# The collate_scale phase's tests: half of N_TESTS, about 77 a project
-# instead of 154, since at N_TESTS the phase took 214.8 s on the card,
-# past its 180 s budget. Runs per mode are never cut: the verb labels only
-# complete tests, at the full N_RUNS.
-COLLATE_TESTS = 2000
+# The collate_scale phase's dataset: 400 tests over 8 projects, 50 a
+# project (11 OD and 30 NOD tests, so every class fills the 10 folds). The
+# phase writes and reads one file a run and project and one outcome line
+# a run and test; it took 214.8 s on the card at N_TESTS over N_PROJECTS,
+# 139.7 s at 2,000 tests (130,078 files, 10.4 M lines) and 50.3-108.7 s
+# at 600 over 13, too much of the script's time limit. Runs per mode are
+# never cut: the verb labels only complete tests, at the full N_RUNS.
+COLLATE_TESTS, COLLATE_PROJECTS = 400, 8
 
 
 def _collect_cases():
@@ -2191,10 +2227,10 @@ def run_collect_chain(tmp):
 def run_collate_scale(tmp):
     """The ``tests`` verb at the study's run counts: the generator of
     ``tests/torch_collect_cases.py`` writes the plugins' artifacts of the
-    synthetic dataset (seed 0, ``COLLATE_TESTS`` tests, 26 projects) at the
-    full run counts (2,500 baseline + 2,500 shuffle + 1 testinspect run a
-    project),
-    ``python -m flake16_framework_tpu_torch tests`` collates them in a
+    synthetic dataset (seed 0, ``COLLATE_TESTS`` tests over
+    ``COLLATE_PROJECTS`` projects) at the full run counts (2,500 baseline
+    + 2,500 shuffle + 1 testinspect run a project), ``python -m
+    flake16_framework_tpu_torch tests`` collates them in a
     child process, as a user runs it, and its ``tests.json`` must equal
     the generator's expected dict. The data directory is removed, then
     ``write_scores`` runs on the card for ``MAIN_CONFIGS`` on the collated
@@ -2211,7 +2247,8 @@ def run_collate_scale(tmp):
     out = {"n_runs": N_RUNS}
     t0 = time.time()
     expected, stats = cases.write_data_dir(
-        data, make_dataset(n_tests=COLLATE_TESTS, n_projects=N_PROJECTS,
+        data, make_dataset(n_tests=COLLATE_TESTS,
+                           n_projects=COLLATE_PROJECTS,
                            seed=0), N_RUNS, SUBJECTS_DIR, seed=0)
     out["generate_s"] = time.time() - t0
     out.update(stats)
@@ -2241,7 +2278,7 @@ def run_collate_scale(tmp):
     _require(all(n > 0 for n in k1), f"collate_scale K1 launches {k1}")
     with open(out_file, "rb") as fd:
         on_disk = pickle.load(fd)
-    _check_schema(on_disk, MAIN_CONFIGS, N_PROJECTS)
+    _check_schema(on_disk, MAIN_CONFIGS, COLLATE_PROJECTS)
     out["configs"] = _config_rows(scores, MAIN_CONFIGS, walls, k1)
     out["launches"] = launches
     return launches, out
@@ -3014,6 +3051,10 @@ def _perfdb_recovery_witness(tmp, root):
 
 TUNE_FAMILIES = ("Flake16/Random Forest", "Flake16/Extra Trees",
                  "FlakeFlagger/Random Forest")
+# The family ``tune`` probes (``--family``): each candidate is a child
+# process of about 12 s on the card, most of it the process's start, and
+# all three families' six probes took 72.4 s of the script's time limit.
+TUNE_PROBED = TUNE_FAMILIES[0]
 TUNE_TREES = 100
 
 
@@ -3081,12 +3122,14 @@ def run_tune_lint(tmp, tj):
 
     buf = io.StringIO()
     t0 = time.time()
-    code = tuner.tune_main(argv + ["--timeout", "300"], out=buf)
+    code = tuner.tune_main(argv + ["--family", TUNE_PROBED,
+                                   "--timeout", "300"], out=buf)
     tune_s = time.time() - t0
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     probes = [dict(p, family=fam) for fam, f in summary["families"].items()
               for p in f["probes"]]
-    _require(code == 0 and len(probes) == 2 * len(TUNE_FAMILIES)
+    _require(code == 0 and list(summary["families"]) == [TUNE_PROBED]
+             and len(probes) == 2
              and not any(tuner.probe_failed(p) for p in probes)
              and all(p["launches"]["hist_cumsum"] > 0 and p["knobs"].get(
                  "F16_HIST_NODE_BATCH") == p["candidate"].get(
@@ -3155,6 +3198,163 @@ def run_tune_lint(tmp, tj):
                             "violations": rec["violations"],
                             "cycle": rec["cycle"]}
                             for name, (dump, rec) in recs.items()}}}
+
+
+AUDIT_TIMEOUT_S = 300
+HIST_MODELS = ("Random Forest", "Extra Trees")
+
+
+def _audit_child(tmp, argv):
+    """``python -m flake16_framework_tpu_torch <argv>`` started in ``tmp``
+    (the checkout on its path; the performance database off, as in every
+    phase but ``perfdb_path``)."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    env.pop("F16_FAULT_INJECT", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "flake16_framework_tpu_torch", *argv],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _seeded_audit_entry(x):
+    """A fixture for the recorder on the card: an op PyTorch's
+    deterministic mode flags on CUDA, and a move to the host."""
+    return torch.histc(x, bins=8).cpu()
+
+
+def run_audit_path(tmp):
+    """The audit on the card (the module docstring's ``audit_path``).
+    Returns (launches of the audit's entries, report)."""
+    from flake16_framework_tpu_torch.analysis import ir, rules_ir
+    from flake16_framework_tpu_torch.obs.perf_diff import perf_main
+    from flake16_framework_tpu_torch.perf import tuner
+
+    adir = os.path.join(tmp, "audit")
+    os.makedirs(adir)
+    t0 = time.time()
+    audit = _audit_child(adir, ["audit", "--json"])
+    lint = _audit_child(adir, ["lint", "--ir", "--json"])
+    out, err = audit.communicate(timeout=AUDIT_TIMEOUT_S)
+    audit_s = time.time() - t0
+    lout, lerr = lint.communicate(timeout=AUDIT_TIMEOUT_S)
+    lint_s = time.time() - t0
+    _require(audit.returncode == 0,
+             f"audit: exit {audit.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    doc = json.loads(out)
+    envs = {e["entry"]: e for e in doc["envelopes"]}
+    c, sc = doc["census"], doc["shap_census"]
+    _require(doc["backend"] == "cuda" and doc["findings"] == []
+             and c["match"] is True and sc["match"] is True
+             and c["source"] == sc["source"] == "executor"
+             and c["static"] == c["runtime"] == 6
+             and sc["static"] == sc["runtime"] == 6
+             and len(envs) == len(doc["entries"]) == 19,
+             f"audit: findings {json.dumps(doc['findings'])[:1500]}, "
+             f"census {c}, shap census {sc}, entries {doc['entries']}")
+    for name, e in envs.items():
+        model = name.rsplit("/", 1)[-1].rstrip("]")
+        if name.startswith(("scores.plan_batch", "shap.plan_batch")):
+            _require((e["k1_launches"] > 0) == (model in HIST_MODELS),
+                     f"audit {name}: K1 {e['k1_launches']} launches")
+        if name.startswith("shap.plan_batch[") or name in (
+                "shap.path", "serve.shap"):
+            _require(e["k2_launches"] > 0,
+                     f"audit {name}: K2 {e['k2_launches']} launches")
+        _require(e["peak_bytes"] <= e["allocator_peak_bytes"],
+                 f"audit {name}: recorded peak {e['peak_bytes']} B above "
+                 f"the allocator's {e['allocator_peak_bytes']} B")
+        _require(not e["nondet"], f"audit {name}: nondeterministic ops "
+                 f"{e['nondet']}")
+    _require(lint.returncode == 0,
+             f"lint --ir: exit {lint.returncode}\n{lout[-3000:]}\n"
+             f"{lerr[-3000:]}")
+    lrep = json.loads(lout)
+    seeded, _ = ir.trace_entry(_seeded_audit_entry, (torch.arange(
+        64.0, device="cuda"),), entry="seeded")
+    rules = sorted(f.rule for f in rules_ir.program_findings(
+        "seeded", seeded, path="chip_smoke.py", declared={}))
+    _require(rules == ["I101", "I201"]
+             and any("histc" in k for k in seeded["nondet"]),
+             f"the recorder on a seeded CUDA entry: {rules}, {seeded}")
+
+    path = os.path.join(adir, "audit.json")
+    with open(path, "w") as fd:
+        fd.write(out)
+    db = os.path.join(adir, "perfdb.jsonl")
+    ingest = io.StringIO()
+    perf_main(["ingest", path, "--db", db], out=ingest)
+    argv = ["--dry-run", "--n", str(N_TESTS), "--trees", str(TUNE_TREES),
+            "--db", db]
+    dry = {}
+    for name, extra in (("default", []), ("between", None)):
+        if extra is None:
+            env = dry["default"]["envelope"]
+            cap = env["peak_mb"] * (TUNED_NODE_BATCH + 128) / 2 \
+                / env["width"]
+            extra = ["--mem-cap-mb", f"{cap:.6f}"]
+        buf = io.StringIO()
+        _require(tuner.tune_main(argv + extra, out=buf) == 0,
+                 f"tune --dry-run {extra}")
+        dry[name] = json.loads(buf.getvalue())
+    env = dry["default"]["envelope"]
+    _require(env["width"] == 128 and env["peak_mb"] == max(
+        e["peak_mb"] for e in envs.values()), f"anchor envelope {env}")
+    for fam in TUNE_FAMILIES:
+        d, b = dry["default"]["veto"][fam], dry["between"]["veto"][fam]
+        _require(d["vetoed"] == [] and not any(
+            w["vetoed"] for w in d["widths"].values()),
+            f"tune --dry-run {fam} at the default cap: {d}")
+        _require(b["widths"]["128"]["vetoed"]
+                 and not b["widths"][str(TUNED_NODE_BATCH)]["vetoed"]
+                 and b["vetoed"] == [],
+                 f"tune --dry-run {fam} between the widths: {b}")
+    launches = {"hist_cumsum": sum(e["k1_launches"] for e in envs.values()),
+                "treeshap_unit": sum(e["k2_launches"]
+                                     for e in envs.values())}
+    return launches, {
+        "audit_s": audit_s, "lint_ir_s": lint_s,
+        "census": c, "shap_census": sc, "findings": len(doc["findings"]),
+        "seeded": {"rules": rules, "nondet": seeded["nondet"],
+                   "host_reads": seeded["host_reads"]},
+        "envelopes": doc["envelopes"],
+        "lint_ir": {"findings": len(lrep["findings"]),
+                    "files": lrep["counts"]["files"]},
+        "ingested": ingest.getvalue().strip(),
+        "dry_run": {name: {"envelope": d["envelope"], "veto": d["veto"]}
+                    for name, d in dry.items()}}
+
+
+def print_audit(au, smi):
+    c, sc = au["census"], au["shap_census"]
+    print(f"audit ({smi}): {len(au['envelopes'])} entries recorded in "
+          f"{au['audit_s']:.2f} s; census static {c['static']} runtime "
+          f"{c['runtime']}, shap census static {sc['static']} runtime "
+          f"{sc['runtime']} ({c['source']}); {au['findings']} findings",
+          flush=True)
+    for e in au["envelopes"]:
+        alloc = e["allocator_peak_bytes"]
+        print(f"audit {e['entry']} ({smi}): host reads "
+              f"{sum(e['host_reads'].values())} at {len(e['host_reads'])} "
+              f"sites, K1 {e['k1_launches']}, K2 {e['k2_launches']}, "
+              f"{e['aten_ops']} aten ops, peak {e['peak_mb']:.3f} MB "
+              f"(allocator {alloc / 2**20:.3f} MB, ratio "
+              f"{e['peak_bytes'] / alloc:.3f}), wall {e['wall_s']:.3f} s",
+              flush=True)
+    print(f"audit seeded CUDA entry: {au['seeded']['rules']} "
+          f"({json.dumps(au['seeded']['nondet'])}, "
+          f"{json.dumps(au['seeded']['host_reads'])})", flush=True)
+    print(f"lint --ir: exit 0, {au['lint_ir']['findings']} findings over "
+          f"{au['lint_ir']['files']} files, {au['lint_ir_s']:.2f} s from "
+          f"the audit's start; perf ingest: {au['ingested']}", flush=True)
+    for name, d in au["dry_run"].items():
+        fam = TUNE_FAMILIES[0]
+        print(f"tune --dry-run at the {name} cap "
+              f"({d['envelope']['cap_mb']:.3f} MB; anchor "
+              f"{d['envelope']['peak_mb']} MB at width "
+              f"{d['envelope']['width']}): {fam} widths "
+              f"{json.dumps(d['veto'][fam]['widths'])}, vetoed "
+              f"{d['veto'][fam]['vetoed']}", flush=True)
 
 
 def print_tune_lint(tl, smi):
@@ -3519,6 +3719,9 @@ def main():
         tune_launches, tl = run_tune_lint(tmp, tj)
         lap("tune_lint")
         print_tune_lint(tl, smi)
+        audit_launches, au = run_audit_path(tmp)
+        lap("audit_path")
+        print_audit(au, smi)
         fleet_launches, fleet_rep, fleet_answers = run_fleet_path(
             tmp, serve_reg, serve_feats)
         fleet_rep["values"] = check_fleet_values(fleet_answers, serve_reg,
@@ -3574,7 +3777,7 @@ def main():
         print_fleet(fleet_rep, fleet_launches, drill, smi)
         by_name = {c["config"]: c for c in configs}
         prof = []
-        for k in MAIN_CONFIGS + DT_CONFIGS[:1]:
+        for k in PROFILED_CONFIGS:
             c = by_name["/".join(k)]
             prof.append(profile_config(tj, k, 10 * (
                 c["t_train_per_fold_s"] + c["t_test_per_fold_s"])))
@@ -3610,7 +3813,7 @@ def main():
              "serve": serve_launches, "fleet": fleet_launches,
              "kill_drill_resumed_child": kill["resumed_child_launches"],
              "metrics": metrics_launches, **perfdb_launches,
-             **tune_launches,
+             **tune_launches, "audit_path": audit_launches,
              "collect_chain": chain_launches, "collate_scale": scale_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
@@ -3635,7 +3838,7 @@ def main():
               "shap_grid_explain_profiles": explains, "serve_path": serve,
               "fleet_path": fleet_rep, "fleet_drill": drill,
               "metrics_path": met, "perfdb_path": pdb,
-              "lockwatch_drill": lw, "tune_lint": tl,
+              "lockwatch_drill": lw, "tune_lint": tl, "audit_path": au,
               "collect_chain": chain,
               "collate_scale": scale,
               "profile": prof, "phases_s": phases,

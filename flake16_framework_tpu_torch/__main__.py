@@ -57,10 +57,15 @@ probes the hist grower's window widths in child processes on the card
 (``--backend cpu`` is the explicit request for the CPU; without CUDA and
 without it, ``tune`` raises) and records each winner as a ``tuned`` row
 that ``scores planner`` consults. ``... lint [PATHS] [--json]
-[--baseline F] [--telemetry PATH] [--rules] [--concurrency]`` is the
-static analysis (``analysis/``; exit 1 on findings). Neither starts a
-telemetry run. ``bench`` and ``audit`` are the JAX package's and are
-refused (ROADMAP.md)."""
+[--baseline F] [--telemetry PATH] [--rules] [--concurrency] [--ir
+[--backend cuda|cpu]]`` is the static analysis (``analysis/``), and
+``... audit [--json] [--budget-mb MB] [--n N] [--trees T] [--max-depth D]
+[--backend cuda|cpu]`` runs every real entry point under the recorder
+(``analysis/ir.py``) and checks the I-rules (``analysis/rules_ir.py``);
+``lint --ir`` folds those findings into the lint. Both exit 1 on
+findings and 2 on a usage error, and without CUDA and without
+``--backend cpu`` the audit raises. None of the three starts a telemetry
+run. ``bench`` is the JAX package's and is refused (ROADMAP.md)."""
 
 import os
 import sys
@@ -116,16 +121,13 @@ def _shap(args):
 
 _COMMANDS = ("setup", "container", "run", "tests", "scores", "resume",
              "shap", "figures", "serve", "report", "trace", "perf", "tune",
-             "lint")
+             "lint", "audit")
 
 # The JAX package's verbs this port refuses, with the reason.
 _REFUSED = {
     "bench": "bench --gate gates the JAX package's BENCH_r*.json "
              "trajectory; the port's benchmark is not built yet "
              "(ROADMAP.md §A 2)",
-    "audit": "audit walks jaxprs in the JAX package; the port's "
-             "counterpart over torch.export graphs is not built yet "
-             "(ROADMAP.md §A 7)",
 }
 
 
@@ -180,12 +182,15 @@ def main(argv=None):
 
         perf_main(args)
         return
-    if command in ("tune", "lint"):
+    if command in ("tune", "lint", "audit"):
         if command == "tune":
             from flake16_framework_tpu_torch.perf.tuner import tune_main \
                 as verb_main
-        else:
+        elif command == "lint":
             from flake16_framework_tpu_torch.analysis.cli import lint_main \
+                as verb_main
+        else:
+            from flake16_framework_tpu_torch.analysis.cli import audit_main \
                 as verb_main
         code = verb_main(args)
         if code:
@@ -236,4 +241,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from flake16_framework_tpu_torch.analysis.cli import USAGE_EXIT, UsageError
+
+    try:
+        main()
+    except UsageError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(USAGE_EXIT)

@@ -12,7 +12,7 @@ directory) in the v2 per-pack schema. Re-linting with ``--baseline
 FILE`` then exits 0 until NEW findings appear — the ratchet for
 adopting a rule on code with existing debt.
 
-``--pack NAME`` (torch | grid | obs | concurrency | engine) regenerates
+``--pack NAME`` (torch | grid | obs | ir | concurrency | engine) regenerates
 ONLY that pack's section and keeps every other pack's fingerprints
 verbatim. A baseline that names a rule id unknown to the catalog fails
 loudly (``engine.load_baseline``) instead of suppressing nothing.

@@ -1,8 +1,11 @@
-"""The ``lint`` CLI verb (``__main__.py``), a copy of the JAX package's
-``analysis/cli.py`` without its jaxpr half:
+"""The ``lint`` and ``audit`` CLI verbs (``__main__.py``), a copy of the
+JAX package's ``analysis/cli.py``:
 
     python -m flake16_framework_tpu_torch lint [PATHS...] [--json]
         [--baseline FILE] [--telemetry PATH] [--rules] [--concurrency]
+        [--ir [--backend cuda|cpu]]
+    python -m flake16_framework_tpu_torch audit [--json] [--budget-mb MB]
+        [--n N] [--trees T] [--max-depth D] [--backend cuda|cpu]
 
 With no PATHS the package itself is linted (the gate invocation; the
 package lints clean). ``--json`` prints the ``lint-report-v1`` document
@@ -13,14 +16,22 @@ writes one). ``--telemetry`` additionally validates emitted telemetry
 documents at PATH (repeatable). ``--rules`` prints the rule catalog and
 exits 0. ``--concurrency`` restricts the run to the concurrency pack
 (C101–C503, rules_conc) — the focused invocation for auditing the
-threaded serving substrate.
+threaded serving substrate. ``--ir`` folds the audit's findings into the
+lint run (imports torch — the one lint path that does) on ``--backend``.
 
-The JAX package's ``--ir`` (and its ``audit`` verb) walk jaxprs; their
-counterpart over ``torch.export`` graphs is not built, so ``--ir`` is
-refused with a message (ROADMAP.md §A 7).
+``audit`` is the standalone audit gate: it runs every real entry point
+(the plan executors over the whole grid, the serving entries, the SHAP
+engines) under the recorder (``analysis/ir.py``) and runs the I-rule
+pack (``analysis/rules_ir.py``) — the census reconciliation, the
+declared host reads, determinism and wide dtypes, and each entry's
+measured memory envelope. Exit 0 = every contract holds; findings print
+in lint format. Both take ``--backend``: ``cuda`` unless the caller asks
+for the CPU, and without CUDA they raise (no silent CPU path), as ``tune``
+does. The JAX audit's ``--no-mesh`` is refused: the port runs one card and
+has no mesh.
 
-Exit status: 0 = no unsuppressed findings, 1 = findings; a usage error
-raises ValueError (the convention of the other verbs).
+Exit status: 0 = no unsuppressed findings, 1 = findings, 2 = usage error
+(``UsageError``, a ValueError; ``python -m`` prints it and exits 2).
 """
 
 import json
@@ -29,16 +40,22 @@ import sys
 
 from flake16_framework_tpu_torch.analysis import engine as eng
 from flake16_framework_tpu_torch.analysis import (
-    rules_conc, rules_grid, rules_obs, rules_torch,
+    rules_conc, rules_grid, rules_ir, rules_obs, rules_torch,
 )
 
-# Every pack runs in every lint — pure AST, dogfooded to zero on the
-# package.
-PACKS = (rules_torch, rules_grid, rules_obs, rules_conc)
+# rules_ir registers its catalog only (no check_* hooks): plain lint
+# stays torch-free; I-findings come from run_audit via ``audit``/``--ir``.
+# Every other pack runs in every lint — pure AST, dogfooded to zero on
+# the package.
+PACKS = (rules_torch, rules_grid, rules_obs, rules_ir, rules_conc)
 
-IR_REFUSED = ("lint --ir walks jaxprs in the JAX package; the port's "
-              "counterpart over torch.export graphs is not built yet "
-              "(ROADMAP.md §A 7)")
+NO_MESH_REFUSED = ("audit --no-mesh: the port runs on one card and has no "
+                   "mesh, so there is no mesh program to leave out")
+USAGE_EXIT = 2
+
+
+class UsageError(ValueError):
+    """A usage error of ``lint`` or ``audit``: ``python -m`` exits 2."""
 
 
 def default_paths():
@@ -51,15 +68,20 @@ def build_engine(packs=None):
 
 
 def run_lint(paths=None, baseline_file=None, telemetry_paths=(),
-             packs=None):
+             ir=False, backend=None, packs=None):
     """The LintResult for PATHS, telemetry-document findings folded in.
-    ``packs`` restricts the run (the ``--concurrency`` focus flag)."""
+    With ``ir`` the audit's findings join the result (imports torch; on
+    ``backend``). ``packs`` restricts the run (the ``--concurrency``
+    focus flag)."""
     engine = build_engine(packs)
     result = engine.lint(paths or default_paths(),
                          baseline=eng.load_baseline(baseline_file,
                                                     rules=engine.rules))
     if telemetry_paths:
         result.findings.extend(rules_obs.check_docs(telemetry_paths))
+    if ir:
+        ir_findings, _info = rules_ir.run_audit(backend=backend)
+        result.findings.extend(ir_findings)
     return result
 
 
@@ -67,8 +89,10 @@ def lint_main(args, out=None):
     out = out or sys.stdout
     as_json = False
     show_rules = False
+    with_ir = False
     conc_only = False
     baseline = None
+    backend = None
     telemetry = []
     paths = []
     it = iter(args)
@@ -78,22 +102,29 @@ def lint_main(args, out=None):
         elif a == "--rules":
             show_rules = True
         elif a == "--ir":
-            raise ValueError(IR_REFUSED)
+            with_ir = True
         elif a == "--concurrency":
             conc_only = True
         elif a == "--baseline":
             baseline = next(it, None)
             if baseline is None:
-                raise ValueError("--baseline needs a file argument")
+                raise UsageError("--baseline needs a file argument")
+        elif a == "--backend":
+            backend = next(it, None)
+            if backend is None:
+                raise UsageError("--backend needs cuda or cpu")
         elif a == "--telemetry":
             t = next(it, None)
             if t is None:
-                raise ValueError("--telemetry needs a path argument")
+                raise UsageError("--telemetry needs a path argument")
             telemetry.append(t)
         elif a.startswith("--"):
-            raise ValueError(f"Unrecognized lint option {a!r}")
+            raise UsageError(f"Unrecognized lint option {a!r}")
         else:
             paths.append(a)
+    if backend is not None and not with_ir:
+        raise UsageError("lint --backend: only the audit (--ir) runs on a "
+                         "device")
 
     packs = (rules_conc,) if conc_only else None
     if show_rules:
@@ -103,7 +134,8 @@ def lint_main(args, out=None):
         return 0
 
     result = run_lint(paths, baseline_file=baseline,
-                      telemetry_paths=telemetry, packs=packs)
+                      telemetry_paths=telemetry, ir=with_ir,
+                      backend=backend, packs=packs)
     report = result.to_report()
     if as_json:
         out.write(json.dumps(report, indent=1) + "\n")
@@ -116,3 +148,80 @@ def lint_main(args, out=None):
             f"{c['files']} file(s); suppressed: {c['suppressed_inline']} "
             f"inline, {c['suppressed_baseline']} baseline\n")
     return 1 if result.findings else 0
+
+
+def audit_report(findings, info):
+    """The ``audit-report-v1`` document (obs.schema.AUDIT_SCHEMA), the
+    JAX package's fields plus ``backend`` (and, on each envelope, the
+    hist window ``width`` it ran at)."""
+    from flake16_framework_tpu_torch.obs import schema
+
+    errors = [f for f in findings if f.severity == eng.ERROR]
+    return {
+        "schema": schema.AUDIT_SCHEMA,
+        "backend": info["backend"],
+        "findings": [f.as_dict() for f in findings],
+        "counts": {"errors": len(errors),
+                   "warnings": len(findings) - len(errors),
+                   "entries": len(info["entries"])},
+        "census": info["census"],
+        "shap_census": info.get("shap_census"),
+        "envelopes": info["envelopes"],
+        "entries": info["entries"],
+        "budget_mb": info["budget_mb"],
+    }
+
+
+def audit_main(args, out=None):
+    out = out or sys.stdout
+    as_json = False
+    kw = {}
+    it = iter(args)
+
+    def arg(flag):
+        v = next(it, None)
+        if v is None:
+            raise UsageError(f"{flag} needs an argument")
+        return v
+
+    for a in it:
+        if a == "--json":
+            as_json = True
+        elif a == "--budget-mb":
+            kw["budget_mb"] = float(arg(a))
+        elif a == "--n":
+            kw["n"] = int(arg(a))
+        elif a == "--trees":
+            kw["n_trees"] = int(arg(a))
+        elif a == "--max-depth":
+            kw["max_depth"] = int(arg(a))
+        elif a == "--backend":
+            kw["backend"] = arg(a)
+        elif a == "--no-mesh":
+            raise UsageError(NO_MESH_REFUSED)
+        else:
+            raise UsageError(f"Unrecognized audit option {a!r}")
+
+    findings, info = rules_ir.run_audit(**kw)
+    if as_json:
+        out.write(json.dumps(audit_report(findings, info), indent=1)
+                  + "\n")
+    else:
+        for f in findings:
+            out.write(f.render() + "\n")
+        c = info["census"]
+        sc = info.get("shap_census") or {}
+        out.write(
+            f"audit: {len(info['entries'])} entr(ies) traced on "
+            f"{info['backend']}; census static={c['static']} "
+            f"runtime={c['runtime']} ({c['source']}); shap census "
+            f"static={sc.get('static')} runtime={sc.get('runtime')} "
+            f"({sc.get('source')}); {len(findings)} finding(s)\n")
+        for env in info["envelopes"]:
+            reads = sum(env["host_reads"].values())
+            out.write(
+                f"  {env['entry']:<52} batch={env['batch']!s:<4} "
+                f"peak={env['peak_mb']:.2f} MB reads={reads} "
+                f"k1={env['k1_launches']} k2={env['k2_launches']} "
+                f"ops={env['aten_ops']} wall={env['wall_s']:.2f}s\n")
+    return 1 if findings else 0

@@ -10,7 +10,8 @@ Mechanics, not rules, live here. A rule *pack* is a module exposing
 
 (the packs: ``rules_torch`` — PyTorch host hygiene, the J ids;
 ``rules_grid`` — the config grid's pre-flight; ``rules_obs`` — telemetry
-schema drift; ``rules_conc`` — concurrency). The engine parses each
+schema drift; ``rules_ir`` — the audit's catalog, whose findings come
+from ``audit``; ``rules_conc`` — concurrency). The engine parses each
 ``.py`` once into a ``Module`` (source + AST + suppression table) and
 funnels every pack's findings through the two suppression layers:
 
@@ -29,8 +30,10 @@ the other, as long as it names only rule ids the loading catalog has.
 The J pack's baseline section is named ``torch`` here (``jax`` in the
 JAX package); loading reads every section whatever its name.
 
-Nothing in this package imports torch or jax: the lint is a host-only
-pre-flight that must not negotiate a device backend.
+Nothing here imports torch or jax: the lint is a host-only pre-flight
+that must not negotiate a device backend (the audit's recorder,
+``analysis/ir.py``, is the one module of ``analysis/`` that imports
+torch, and only the audit imports it).
 """
 
 import ast
@@ -52,7 +55,7 @@ BASELINE_SCHEMA_V1 = "flake16-lint-baseline-v1"
 # fingerprint format (``RULE:hash``) keeps the rule id recoverable, so
 # grouping needs no extra bookkeeping at save time.
 PACK_PREFIXES = {"E": "engine", "J": "torch", "G": "grid", "O": "obs",
-                 "C": "concurrency"}
+                 "I": "ir", "C": "concurrency"}
 
 
 def pack_of(rule_id):

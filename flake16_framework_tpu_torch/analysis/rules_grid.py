@@ -93,8 +93,8 @@ RULES = {r.id: r for r in (
 # the inclusive minimum; "str": free-form (censused but not value-checked).
 # The census of the variables the port reads: the JAX package's
 # registrations with no reader here (the PCA, SHAP block, refinement,
-# bins, predict, ET draw, feature quota and device budget knobs) are
-# left out, since a declared knob no module reads is G106's stale entry.
+# bins, predict, ET draw and feature quota knobs) are left out, since a
+# declared knob no module reads is G106's stale entry.
 KNOBS = {
     "F16_TELEMETRY": ("str", None),
     "F16_TELEMETRY_HEARTBEAT_S": ("float", 0.0),
@@ -128,6 +128,9 @@ KNOBS = {
     "F16_FLEET_HEDGE_MS": ("float", 0.0),
     "F16_FLEET_HEARTBEAT_S": ("float", 0.0),
     "F16_FLEET_STALL_S": ("float", 0.0),
+    # The audit's device budget (MB): when set, an entry whose measured
+    # peak exceeds it is an I401 finding (analysis/rules_ir.run_audit).
+    "F16_DEVICE_BUDGET_MB": ("float", 0.0),
 }
 
 # The PAPER's grid size — historical reference only. The pre-flight's

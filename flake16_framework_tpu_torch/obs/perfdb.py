@@ -423,9 +423,13 @@ def rows_from_run(run_dir):
 
 
 def rows_from_audit(doc, src="audit"):
-    """Perfdb rows from an ``audit --json`` document (the JAX package's
-    audit): the per-plan memory envelopes become ``audit.<entry>`` rows
-    (peak/arg/out MB)."""
+    """Perfdb rows from an ``audit --json`` document of either package:
+    the per-entry memory envelopes become ``audit.<entry>`` rows (peak,
+    arg and out MB) under the document's ``backend`` (the port's audit
+    names ``cuda`` or ``cpu``; the JAX package's traces abstractly and
+    names none, so ``abstract``). A port envelope's hist window ``width``
+    rides along as a metric; the JAX package's envelopes carry none, and
+    ``perf/tuner.py`` reads their width as 8."""
     rows = []
     for env in doc.get("envelopes") or ():
         if not isinstance(env, dict) or "entry" not in env:
@@ -439,6 +443,8 @@ def rows_from_audit(doc, src="audit"):
                        if isinstance(env.get("out_bytes"), (int, float))
                        else None),
         }
+        if isinstance(env.get("width"), (int, float)):
+            metrics["width"] = env["width"]
         try:
             rows.append(make_row(doc.get("backend") or "abstract", "audit",
                                  f"audit.{env['entry']}", metrics, src=src))

@@ -18,8 +18,11 @@ context like config keys) and strict on required fields and their types.
 Three more documents share the family: the performance database's rows
 (PERFDB_SCHEMA, ``obs/perfdb.py``), the lock-order witness's dump
 (LOCKWATCH_SCHEMA, ``obs/lockwatch.py``) and the ``lint --json`` report
-(LINT_SCHEMA, ``analysis/engine.py``). The audit report's validator waits
-for the port's audit (ROADMAP.md §A 7).
+(LINT_SCHEMA, ``analysis/engine.py``), and so does the ``audit --json``
+report (AUDIT_SCHEMA, ``analysis/cli.audit_report``): the port's audit
+document adds ``backend`` and, on each envelope, the hist window
+``width``, so it validates under the JAX package's validator, and a JAX
+package's audit document validates under this one.
 """
 
 EVENTS_FILE = "events.jsonl"
@@ -32,7 +35,7 @@ REPORT_SCHEMA = "flake16-report-v1"
 # member of this same schema family so the drift lint validates its own
 # reports (analysis/rules_obs.check_json_file).
 LINT_SCHEMA = "flake16-lint-report-v1"
-# The JAX package's ``audit --json`` document, which the performance
+# The ``audit --json`` document of either package, which the performance
 # database ingests (its memory envelopes; obs/perfdb.rows_from_audit).
 AUDIT_SCHEMA = "flake16-audit-report-v1"
 # The performance-database row (obs/perfdb.py): one CRC'd JSONL line per
@@ -110,6 +113,11 @@ REPORT_SPAN_FIELDS = {"n", "cold_n", "total_s", "compile_est_s", "execute_s"}
 
 LINT_FIELDS = {"schema": str, "findings": list, "counts": dict,
                "rules": dict}
+AUDIT_FIELDS = {"schema": str, "findings": list, "counts": dict,
+                "census": dict, "envelopes": list, "entries": list}
+AUDIT_CENSUS_FIELDS = ("static", "runtime", "match")
+AUDIT_ENVELOPE_FIELDS = ("entry", "arg_bytes", "out_bytes", "peak_bytes",
+                         "peak_mb")
 LINT_FINDING_FIELDS = {"rule": str, "severity": str, "path": str,
                        "line": int, "col": int, "message": str}
 LINT_COUNT_FIELDS = ("errors", "warnings", "suppressed_inline",
@@ -173,6 +181,40 @@ def validate_lint_report(obj):
             if not isinstance(counts.get(name), int):
                 problems.append(
                     f"lint report: counts[{name!r}] missing or not int")
+    return problems
+
+
+def validate_audit_report(obj):
+    """Problems with one ``audit --json`` document (empty list = valid)."""
+    problems = []
+    if not isinstance(obj, dict):
+        return [f"audit report is {type(obj).__name__}, want object"]
+    _check_fields(obj, AUDIT_FIELDS, problems, "audit report")
+    if obj.get("schema") != AUDIT_SCHEMA:
+        problems.append(
+            f"audit report: schema {obj.get('schema')!r} != "
+            f"{AUDIT_SCHEMA!r}")
+    for i, f in enumerate(obj.get("findings") or ()):
+        if not isinstance(f, dict):
+            problems.append(f"audit report: findings[{i}] is not an object")
+            continue
+        _check_fields(f, LINT_FINDING_FIELDS, problems,
+                      f"audit report: findings[{i}]")
+    census = obj.get("census")
+    if isinstance(census, dict):
+        for name in AUDIT_CENSUS_FIELDS:
+            if name not in census:
+                problems.append(
+                    f"audit report: census missing {name!r}")
+    for i, env in enumerate(obj.get("envelopes") or ()):
+        if not isinstance(env, dict):
+            problems.append(
+                f"audit report: envelopes[{i}] is not an object")
+            continue
+        missing = set(AUDIT_ENVELOPE_FIELDS) - set(env)
+        if missing:
+            problems.append(
+                f"audit report: envelopes[{i}] missing {sorted(missing)}")
     return problems
 
 

@@ -56,6 +56,15 @@ What differs from the JAX package's tuner:
 - **Backend.** ``tune`` searches on ``cuda`` unless ``--backend cpu``
   asks for the CPU, and raises without CUDA (``device.resolve``): there
   is no silent CPU path.
+- **The memory veto scales an envelope from its own width.** The JAX
+  tuner scales every audit envelope by width / 8, its CPU audit's width.
+  The port's audit records the width each envelope was measured at
+  (``width``: 8 on the CPU, 128 on the card), and ``mem_vetoed`` scales
+  from it (``audit_envelope`` picks the row with the largest peak per
+  unit of width); a row without one (a JAX document) is scaled from 8
+  under the JAX rule, so the veto is the JAX tuner's on its documents.
+  ``tune --dry-run`` also prints the veto: the candidates it drops and,
+  beside the field, the verdict at every width of the domain (``veto``).
 - **A failed probe fails the verb.** As in the JAX package the failed
   candidate loses the search (its wall is ``inf``), but ``tune`` then
   exits 1, so a broken probe never passes as "defaults stand"; the
@@ -191,24 +200,50 @@ def family_history_wall(rows, backend, n, n_trees, member_codes):
     return min(sums) if sums else None
 
 
-def audit_peak_mb(rows):
-    """The largest plan memory envelope on record (audit rows,
-    obs/perfdb.rows_from_audit) — the width-veto anchor."""
-    peaks = []
+# The window width the JAX package's audit envelopes stand for: they
+# record none, and the JAX tuner scales them from width 8.
+WIDTH_OF_JAX_AUDIT = 8
+
+
+def audit_envelope(rows):
+    """(peak_mb, width) of the audit row (obs/perfdb.rows_from_audit)
+    whose envelope is the largest per unit of window width — the
+    width-veto anchor — or (None, None) with none on record. ``width`` is
+    the row's ``width`` metric: the port's audit records the width each
+    plan ran at (8 on the CPU, 128 on the card); the JAX package's rows
+    carry none (None, read as ``WIDTH_OF_JAX_AUDIT``)."""
+    best, best_ratio = (None, None), None
     for row in rows or ():
         if not str(row.get("kernel") or "").startswith("audit."):
             continue
-        peak = (row.get("metrics") or {}).get("peak_mb")
-        if isinstance(peak, (int, float)):
-            peaks.append(float(peak))
-    return max(peaks) if peaks else None
+        m = row.get("metrics") or {}
+        peak, width = m.get("peak_mb"), m.get("width")
+        if not isinstance(peak, (int, float)):
+            continue
+        if width is not None and (not isinstance(width, (int, float))
+                                  or width <= 0):
+            continue
+        ratio = peak / (width or WIDTH_OF_JAX_AUDIT)
+        if best_ratio is None or ratio > best_ratio:
+            best, best_ratio = (float(peak), width), ratio
+    return best
 
 
-def mem_vetoed(cand_env, peak_mb, cap_mb):
+def audit_peak_mb(rows):
+    """The anchor envelope's peak (``audit_envelope``): on the JAX
+    package's rows, which carry no width, the largest plan envelope on
+    record."""
+    return audit_envelope(rows)[0]
+
+
+def mem_vetoed(cand_env, peak_mb, cap_mb, audited_width=None):
     """Whether a candidate's window width would scale the audited plan
     envelope past the cap. The grower's per-step working set is ~linear
-    in the width, so the envelope scales by width/8 (the audited default
-    width). No envelope on record means no veto."""
+    in the width, so the envelope scales by width / the width it was
+    audited at: ``audited_width``, the width the port's audit measured
+    the envelope at, or None for the JAX package's envelopes, which stand
+    for width 8 and, as in the JAX tuner, never veto a width at or under
+    it. No envelope on record means no veto."""
     if peak_mb is None or not cap_mb:
         return False
     width = cand_env.get("F16_HIST_NODE_BATCH_CPU") or \
@@ -217,9 +252,25 @@ def mem_vetoed(cand_env, peak_mb, cap_mb):
         width = int(width)
     except (TypeError, ValueError):
         return False
-    if width <= 8:
+    if audited_width is None and width <= WIDTH_OF_JAX_AUDIT:
         return False
-    return peak_mb * (width / 8.0) > cap_mb
+    scale = width / float(audited_width or WIDTH_OF_JAX_AUDIT)
+    return peak_mb * scale > cap_mb
+
+
+def width_verdicts(knobs, peak_mb, cap_mb, audited_width=None):
+    """{width: {"scaled_mb", "vetoed"}} for every width of the window
+    knobs' domains, their defaults included, at the anchor envelope —
+    what ``tune --dry-run`` prints beside the field. The field never drops
+    the baseline (today's default width, an empty env), as in the JAX
+    tuner; the verdict on the default says whether it fits the cap."""
+    if peak_mb is None:
+        return {}
+    return {str(v): {
+        "scaled_mb": round(peak_mb * int(v)
+                           / float(audited_width or WIDTH_OF_JAX_AUDIT), 3),
+        "vetoed": mem_vetoed({k.name: v}, peak_mb, cap_mb, audited_width)}
+        for k in knobs for v in k.domain}
 
 
 # -- the search ----------------------------------------------------------
@@ -289,9 +340,9 @@ def tune_family(fs_name, model_name, *, backend, n, n_trees, n_folds,
                              include_parity=include_parity)
     hist_wall = family_history_wall(rows, backend, n, n_trees,
                                     set(member_codes))
-    peak_mb = audit_peak_mb(rows)
+    peak_mb, audited_width = audit_envelope(rows)
     field = [(name, env) for name, env in candidates(knobs)
-             if not mem_vetoed(env, peak_mb, cap_mb)]
+             if not mem_vetoed(env, peak_mb, cap_mb, audited_width)]
     vetoed = len(candidates(knobs)) - len(field)
     log(f"{fs_name}/{model_name}: {len(field)} candidate(s) over "
         f"{len(knobs)} knob(s)"
@@ -573,14 +624,27 @@ def tune_main(argv, out=None):
     n_folds = 10  # the study protocol's StratifiedKFold(10)
 
     if args.dry_run:
+        peak_mb, audited_width = audit_envelope(rows)
+        summary["envelope"] = {"peak_mb": peak_mb, "width": audited_width,
+                               "cap_mb": args.mem_cap_mb}
+        summary["veto"] = {}
         for fam in fams:
             shape = planner.plan_shape(
                 *fam, n=n, n_folds=n_folds,
                 tree_overrides={m: n_trees for m in ENSEMBLES})
             knobs = applicable_knobs(shape, backend, fam[1])
+            field = candidates(knobs)
             summary["families"]["/".join(fam)] = {
                 "shape": perfdb.shape_sig(shape),
-                "candidates": [name for name, _ in candidates(knobs)],
+                "candidates": [name for name, _ in field],
+            }
+            # The audit envelope's memory veto: which candidates the
+            # search would drop, and the verdict at every width.
+            summary["veto"]["/".join(fam)] = {
+                "vetoed": [name for name, env in field if mem_vetoed(
+                    env, peak_mb, args.mem_cap_mb, audited_width)],
+                "widths": width_verdicts(knobs, peak_mb, args.mem_cap_mb,
+                                         audited_width),
             }
         out.write(json.dumps(summary) + "\n")
         return 0

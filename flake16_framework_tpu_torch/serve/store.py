@@ -17,8 +17,13 @@ study's explain stage uses.
 SHAP on a CUDA tensor goes through ``kernels.treeshap_unit.unit_shap``,
 which launches the kernel or raises: there is no fallback arm. A warm
 failure stops the service from starting; a call-time fault goes to the
-batcher's guard and quarantine. (Not ported: the JAX store's
-``audit_handles``, which goes with ``audit``.)
+batcher's guard and quarantine.
+
+``audit_handles`` gives the audit (``analysis/rules_ir.serve_entries``)
+the serving entry points as calls on a prepared model. The port has no
+ahead-of-time cache and one SHAP route, so where the JAX store hands out
+``serve.predict``, ``serve.shap_xla`` and ``serve.shap_pallas``, this one
+hands out ``serve.predict`` and ``serve.shap``.
 """
 
 import hashlib
@@ -151,6 +156,17 @@ class ExecutableStore:
         with atomic_write(path, "w") as fd:
             json.dump(manifest, fd, indent=1, sort_keys=True)
         return manifest
+
+    def audit_handles(self, model, x):
+        """{entry name: (fn, args, kwargs)} for every serving entry point:
+        ``serve.predict`` and ``serve.shap``, each ``call`` of ``model``
+        (prepared here, so that the preparation is not part of an entry)
+        on the padded host batch ``x`` [bucket, F] f32 — what every live
+        request dispatches through, run by the audit's recorder."""
+        self._prepare(model)
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        return {f"serve.{kind}": (self.call, (model, kind, x), {})
+                for kind in KINDS}
 
     # -- dispatch --------------------------------------------------------
 

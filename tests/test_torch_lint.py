@@ -34,7 +34,7 @@ from flake16_framework_tpu_torch.analysis import Engine, Module
 from flake16_framework_tpu_torch.analysis import baseline as tbaseline
 from flake16_framework_tpu_torch.analysis import engine as eng
 from flake16_framework_tpu_torch.analysis import (
-    rules_conc, rules_grid, rules_obs, rules_torch,
+    rules_conc, rules_grid, rules_ir, rules_obs, rules_torch,
 )
 from flake16_framework_tpu_torch.analysis.cli import PACKS, lint_main
 from flake16_framework_tpu_torch.obs import schema
@@ -330,20 +330,21 @@ def test_cli_json_rules_and_refusals(tmp_path):
     report = json.loads(out.getvalue())
     assert schema.validate_lint_report(report) == []
     assert jschema.validate_lint_report(report) == []
-    assert report["packs"] == ["concurrency", "engine", "grid", "obs",
-                               "torch"]
+    assert report["packs"] == ["concurrency", "engine", "grid", "ir",
+                               "obs", "torch"]
     assert {f["rule"] for f in report["findings"]} == set(rules_torch.RULES)
     assert schema.validate_lint_report({"schema": "x"}) != []
     out = io.StringIO()
     assert lint_main(["--rules"], out=out) == 0
     catalog = out.getvalue()
     for rid in (set(rules_torch.RULES) | set(rules_grid.RULES)
-                | set(rules_obs.RULES) | set(rules_conc.RULES) | {"E001"}):
+                | set(rules_obs.RULES) | set(rules_conc.RULES)
+                | set(rules_ir.RULES) | {"E001"}):
         assert re.search(rf"^{rid} ", catalog, re.M), rid
-    assert "J101" not in catalog
+    assert "J101" not in catalog and "I501" not in catalog
     for argv, what in ((["lint", "--bogus"], "Unrecognized lint option"),
-                       (["lint", "--ir"], "torch.export"),
-                       (["audit"], "torch.export"),
+                       (["lint", "--backend", "cpu"], "--ir"),
+                       (["audit", "--no-mesh"], "no mesh"),
                        (["bench", "--gate"], "ROADMAP")):
         with pytest.raises(ValueError, match=what):
             tmain.main(argv)
@@ -371,17 +372,20 @@ def test_port_lints_clean_with_reasons():
 
 
 def test_analysis_imports_no_torch_or_jax():
+    # The audit's recorder (ir.py) is the one module that imports torch;
+    # only the audit imports it, lazily (tests/test_torch_audit.py).
     base = os.path.join(PORT, "analysis")
     for name in sorted(os.listdir(base)):
         if not name.endswith(".py"):
             continue
         with open(os.path.join(base, name)) as fd:
             tree = ast.parse(fd.read())
+        banned = ("jax", "flake16_framework_tpu") if name == "ir.py" else \
+            ("torch", "jax", "flake16_framework_tpu")
         for node in ast.walk(tree):
             mods = ([a.name for a in node.names]
                     if isinstance(node, ast.Import)
                     else [node.module or ""]
                     if isinstance(node, ast.ImportFrom) else [])
             for m in mods:
-                assert m.split(".")[0] not in (
-                    "torch", "jax", "flake16_framework_tpu"), (name, m)
+                assert m.split(".")[0] not in banned, (name, m)

@@ -119,7 +119,7 @@ def test_cli_rejects_unknown_input():
     with pytest.raises(ValueError, match="Unrecognized command"):
         tmain.main(["tnue"])
     with pytest.raises(ValueError, match="not built yet"):
-        tmain.main(["audit"])
+        tmain.main(["bench"])
     with pytest.raises(ValueError, match="Unrecognized shap option"):
         tmain.main(["shap", "gird"])
     with pytest.raises(ValueError, match="Unrecognized scores option"):

@@ -136,6 +136,34 @@ def test_seeding_equal_jax():
                 jtuner.mem_vetoed(env, p, cap)
 
 
+def test_mem_veto_scales_from_the_audited_width():
+    """A port audit's envelope carries the width it ran at (128 on the
+    card): it is scaled from there, not from the JAX package's 8, and
+    the anchor is the row with the largest peak per unit of width."""
+    rows = [perfdb.make_row("cuda", "audit", "audit.scores.plan_batch[F/M]",
+                            {"peak_mb": 40.0, "width": 128}, src="audit",
+                            ts=1.0),
+            perfdb.make_row("abstract", "audit", "audit.plan_peak",
+                            {"peak_mb": 1.0}, src="audit", ts=1.0)]
+    assert tuner.audit_envelope(rows) == (40.0, 128)
+    assert tuner.audit_envelope(rows[1:]) == (1.0, None)
+    peak, width = tuner.audit_envelope(rows)
+    for w, cap, want in ((128, 39.0, True), (128, 40.0, False),
+                         (64, 25.0, False), (64, 19.0, True),
+                         (128, 3072.0, False)):
+        env = {"F16_HIST_NODE_BATCH": str(w)}
+        assert tuner.mem_vetoed(env, peak, cap, width) is want, (w, cap)
+    # read from 8, as before, the same row would veto 64 at any cap
+    # under 320 MB
+    assert tuner.mem_vetoed({"F16_HIST_NODE_BATCH": "64"}, peak, 300.0)
+    knobs = tuner.applicable_knobs(
+        planner.plan_shape(FS, RF, n=400, n_folds=10), "cuda", RF, env={})
+    verdicts = tuner.width_verdicts(knobs, peak, 30.0, width)
+    assert verdicts == {"64": {"scaled_mb": 20.0, "vetoed": False},
+                        "128": {"scaled_mb": 40.0, "vetoed": True}}
+    assert tuner.width_verdicts(knobs, None, 30.0) == {}
+
+
 def test_successive_halving_and_compose_equal_jax():
     seq = {"a": [5.0, 4.0, 6.0], "b": [5.0, 5.0, 5.0], "c": [7.0] * 3,
            "d": [6.0, 3.0, 9.0], "e": [5.0, 5.0, 4.0]}
