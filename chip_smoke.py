@@ -32,7 +32,19 @@ three plans, each member's 10 folds grown as one tree batch; its scores
 must equal the scores path's, and each member's wall, K1 launches, host
 reads, peak memory and (profiled once more) idle share are printed. K1 is
 held bitwise and timed on every fold-batched BFS step of the RF member
-(1,000 trees reading 10 groups of bins).
+(1,000 trees reading 10 groups of bins). The planner path runs under
+``F16_DEVICE_BUDGET_MB`` at the card's whole memory, so the sweep's
+budget pre-flight passes it; ``budget_preflight`` then holds the memory
+envelope (``parallel/envelope.py``, on ``cuda`` at the shape and width
+each member ran) against each member's measured peak over the
+allocation at its entry: at or above it, within 1.5 times for the RF and
+ET members and 2 times for the Decision Trees. A child runs ``python -m
+flake16_framework_tpu_torch scores planner`` on the whole grid in a
+directory holding only the synthetic ``tests.json``, under a budget
+between the Decision Tree plans' envelope and the hist plans': it must
+exit non-zero with ``PlanOverBudget`` naming exactly the four hist plans
+at the envelopes computed here, launch no K1, and leave no ``scores.pkl``
+and no journal record.
 
 Three drills hold the crash tolerance of ``scores`` on the card, on an RF,
 an ET and a Decision Tree config at full width, each against the scores
@@ -1093,6 +1105,7 @@ def run_planner_path(tmp, tj, ref):
 
     def measured(self, keys):
         torch.cuda.synchronize()
+        entry = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         k1 = cum_hists.launches
         with _count_host_reads() as reads:
@@ -1100,12 +1113,14 @@ def run_planner_path(tmp, tj, ref):
             out = real(self, keys)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         members.append({"config": "/".join(keys), "folds": self.n_folds,
                         "wall_s": wall,
                         "hist_cumsum_launches": cum_hists.launches - k1,
                         "host_reads": reads[0],
-                        "peak_allocated_gb":
-                            torch.cuda.max_memory_allocated() / 1e9})
+                        "peak_allocated_gb": peak / 1e9,
+                        "peak_allocated_bytes": peak,
+                        "entry_allocated_bytes": entry})
         return out
 
     out_file = os.path.join(tmp, "scores-planner.pkl")
@@ -1137,6 +1152,114 @@ def run_planner_path(tmp, tj, ref):
                                                    for k in DT_CONFIGS),
              f"timing meta {meta}")
     return launches, members, journal, wall
+
+
+_BUDGET_CHILD = r"""
+import json, runpy, sys
+from flake16_framework_tpu_torch.kernels.hist import cum_hists
+from flake16_framework_tpu_torch.kernels.treeshap_unit import unit_shap
+sys.argv = ["flake16_framework_tpu_torch", "scores", "planner"]
+try:
+    runpy.run_module("flake16_framework_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+finally:
+    print("launches: " + json.dumps({"hist_cumsum": cum_hists.launches,
+                                     "treeshap_unit": unit_shap.launches}),
+          flush=True)
+"""
+
+# The envelope over a planner member's measured peak (``budget_preflight``).
+LAW_LIMIT = {"hist": 1.5, "exact": 2.0}
+
+
+def run_budget_preflight(tmp, tj, members):
+    """The sweep's budget pre-flight on the card. (a) Each ``planner_path``
+    member's envelope (``sweep.plan_envelope`` on ``cuda``, the member as
+    a plan of one at N = 4000, 100 trees, depth 48, the default width
+    128) against its measured peak over the allocation at its entry: the
+    envelope's resident bytes are left out of the comparison, since the
+    engine's labels and masks were allocated before the member (its
+    32 MiB cuBLAS workspace stays in, though earlier phases made it). (b) A
+    child ``python -m flake16_framework_tpu_torch scores planner`` over
+    the whole grid (``_BUDGET_CHILD`` runs the module as ``-m`` does and
+    prints K1's and K2's launches as the drills' children do), in a
+    directory holding only ``tests.json``, with the budget halfway between
+    the Decision Tree plans' envelopes and the hist plans': a non-zero
+    exit with ``PlanOverBudget`` in its stderr naming exactly the four
+    hist plans, each at the envelope computed here, no launch, no
+    ``scores.pkl`` and no journal record. Returns the phase's record."""
+    from flake16_framework_tpu_torch import config as cfg
+    from flake16_framework_tpu_torch.parallel import planner, sweep
+    from flake16_framework_tpu_torch.resilience import journal as rjournal
+
+    def envelope(plan):
+        return sweep.plan_envelope(plan, n_projects=N_PROJECTS,
+                                   max_depth=48, grower=None,
+                                   device_type="cuda", detail=True)
+
+    rows = []
+    for m in members:
+        keys = tuple(m["config"].split("/"))
+        env = envelope(planner.plan_grid([keys], n=N_TESTS, n_folds=10)[0])
+        law = env["peak_bytes"] - env["arg_bytes"]
+        measured = m["peak_allocated_bytes"] - m["entry_allocated_bytes"]
+        grower = "exact" if keys[4] == "Decision Tree" else "hist"
+        ratio = law / measured
+        _require(1.0 <= ratio <= LAW_LIMIT[grower],
+                 f"{m['config']}: envelope {law} B over measured {measured} "
+                 f"B is {ratio:.4f}, outside [1, {LAW_LIMIT[grower]}]")
+        rows.append({"config": m["config"], "law_bytes": law,
+                     "measured_bytes": measured,
+                     "entry_bytes": m["entry_allocated_bytes"],
+                     "ratio": ratio, "law_phase": max(
+                         env["phases"], key=env["phases"].get)})
+
+    plans = planner.plan_grid([tuple(k) for k in cfg.iter_config_keys()],
+                              n=N_TESTS, n_folds=10)
+    mb = {"/".join(p.family): envelope(p)["peak_bytes"] / 2**20
+          for p in plans}
+    hist = {f for f in mb if not f.endswith("Decision Tree")}
+    low = max(v for f, v in mb.items() if f not in hist)
+    high = min(v for f, v in mb.items() if f in hist)
+    _require(low < high, f"plan envelopes {mb}")
+    budget = round((low + high) / 2, 1)
+    run = os.path.join(tmp, "budget-child")
+    os.makedirs(run)
+    with open(tj, "rb") as src, \
+            open(os.path.join(run, "tests.json"), "wb") as dst:
+        dst.write(src.read())
+    env = dict(os.environ, F16_DEVICE_BUDGET_MB=str(budget),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", _BUDGET_CHILD], cwd=run,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+    wall = time.time() - t0
+    named = re.findall(r"(?:: |; )([A-Za-z0-9]+/[A-Za-z ]+) \(batch=36\): "
+                       r"peak ([0-9.]+) MB", child.stderr)
+    _require(child.returncode != 0 and "PlanOverBudget" in child.stderr,
+             f"budget child: exit {child.returncode}\n{child.stderr[-3000:]}")
+    _require(f"plan pre-flight: {len(hist)} of {len(plans)} family "
+             f"program(s) exceed the F16_DEVICE_BUDGET_MB={budget:g} device "
+             f"budget: " in child.stderr, f"budget child: {child.stderr}")
+    _require({f for f, _ in named} == hist and all(
+        f"{mb[f]:.1f}" == v for f, v in named),
+        f"budget child named {named}, want {sorted(hist)} at {mb}")
+    launches = json.loads(child.stdout.rsplit("launches: ", 1)[1]
+                          .splitlines()[0])
+    _require(launches == {"hist_cumsum": 0, "treeshap_unit": 0},
+             f"budget child launched {launches}")
+    left = sorted(os.listdir(run))
+    _require("scores.pkl" not in left, f"budget child left {left}")
+    jpath = os.path.join(run, "scores.pkl.journal")
+    rep = rjournal.replay(jpath, warn_out=io.StringIO()) \
+        if os.path.exists(jpath) else None
+    _require(rep is None or (not rep.ledger and not rep.partial),
+             "budget child journaled a record")
+    return {"members": rows, "plan_envelopes_mb": mb, "budget_mb": budget,
+            "child_rc": child.returncode, "child_wall_s": wall,
+            "child_launches": launches, "child_named": named,
+            "child_left": left}
 
 
 def check_batched_steps(tests_file):
@@ -3586,8 +3709,15 @@ def main():
         tel["walls"] = time_telemetry(tmp, tj)
         lap("telemetry_walls")
         print_telemetry(tel, tel_launches, smi)
-        planner_launches, members, pjournal, pwall = run_planner_path(
-            tmp, tj, ref)
+        # The planner path under the budget pre-flight, at the card's
+        # whole memory: every plan passes it.
+        total_mb = torch.cuda.get_device_properties(0).total_memory / 2**20
+        os.environ["F16_DEVICE_BUDGET_MB"] = f"{total_mb:.1f}"
+        try:
+            planner_launches, members, pjournal, pwall = run_planner_path(
+                tmp, tj, ref)
+        finally:
+            del os.environ["F16_DEVICE_BUDGET_MB"]
         lap("planner_path")
         for m in members:
             print(f"planner member {m['config']} ({smi}): wall "
@@ -3600,6 +3730,20 @@ def main():
               f"{pjournal['append_wall_s']:.6f} s of "
               f"{pjournal['sweep_wall_s']:.3f} s; scores == scores path",
               flush=True)
+        budget = run_budget_preflight(tmp, tj, members)
+        lap("budget_preflight")
+        for r in budget["members"]:
+            print(f"budget_preflight {r['config']} ({smi}): envelope "
+                  f"{r['law_bytes'] / 2**20:.1f} MB ({r['law_phase']}), "
+                  f"measured {r['measured_bytes'] / 2**20:.1f} MB over "
+                  f"{r['entry_bytes'] / 2**20:.1f} MB at entry, envelope / "
+                  f"measured {r['ratio']:.4f}", flush=True)
+        print(f"budget_preflight child ({smi}): F16_DEVICE_BUDGET_MB="
+              f"{budget['budget_mb']:g} (planner path at {total_mb:.1f}), "
+              f"exit {budget['child_rc']} with PlanOverBudget naming "
+              f"{', '.join(f for f, _ in budget['child_named'])}; launches "
+              f"{budget['child_launches']}; left {budget['child_left']}; "
+              f"wall {budget['child_wall_s']:.2f} s", flush=True)
         batched = check_batched_steps(tj)
         lap("hist_cumsum_batched_steps")
         print(f"hist_cumsum fold-batched steps {batched['config']} "
@@ -3829,6 +3973,7 @@ def main():
               "telemetry_path": tel,
               "planner_path": members, "planner_path_wall_s": pwall,
               "planner_path_journal": pjournal,
+              "budget_preflight": budget,
               "hist_batched_steps": batched, "planner_profile": member_prof,
               "kill_drill": kill, "sticky_fault_drill": sticky,
               "oom_drill": oom, "lopo_path": lopo_cfgs,

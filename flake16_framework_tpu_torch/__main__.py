@@ -26,6 +26,9 @@ config's folds grown as one tree batch), ``dispatch=N`` (at most N trees a
 fold grown as one batch) and ``profile=DIR`` (a ``torch.profiler`` capture
 of the sweep, written as a Chrome trace in DIR), and exit with 23 when
 configs were quarantined (``scores.pkl.quarantine.json`` lists them).
+Under ``planner`` with ``F16_DEVICE_BUDGET_MB`` set, a grid with a plan
+whose memory envelope exceeds the budget is refused before any plan
+runs (``PlanOverBudget``, ``parallel/sweep.py``).
 
 With ``F16_TELEMETRY`` set (``1``, or a root directory), every command
 writes its events and manifest into a run directory (``obs/``):
@@ -127,7 +130,7 @@ _COMMANDS = ("setup", "container", "run", "tests", "scores", "resume",
 _REFUSED = {
     "bench": "bench --gate gates the JAX package's BENCH_r*.json "
              "trajectory; the port's benchmark is not built yet "
-             "(ROADMAP.md §A 2)",
+             "(ROADMAP.md §A 1)",
 }
 
 

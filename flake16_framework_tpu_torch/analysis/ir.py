@@ -514,14 +514,15 @@ def trace_plan_program(configs, data, *, device, max_depth=8,
                        tree_overrides=None):
     """The scores arm: ``SweepEngine(..., planner_mode=True).run_grid``
     over ``configs`` on ``data`` (``audit_data``), recorded whole and cut
-    at its ``scores.plan`` spans. Returns (records, plan windows opened,
-    {config keys: result})."""
+    at its ``scores.plan`` spans, with no budget pre-flight: the audit
+    holds ``F16_DEVICE_BUDGET_MB`` against the recorded peaks (I401).
+    Returns (records, plan windows opened, {config keys: result})."""
     from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
 
     with Recorder(device, cut_plans=True) as rec:
         engine = SweepEngine(*data, max_depth=max_depth,
                              tree_overrides=tree_overrides, device=device,
-                             planner_mode=True)
+                             planner_mode=True, preflight=False)
         scores = engine.run_grid(configs)
     if engine.quarantined:
         raise RuntimeError(f"audit: configs quarantined "

@@ -36,6 +36,12 @@ runs every config, and every plan member, under the dispatch guard
 (``resilience/guard.py``) as a call of its own and quarantines a config
 that exhausts its attempts.
 
+With ``F16_DEVICE_BUDGET_MB`` set, ``run_grid`` under ``planner_mode``
+holds every plan's memory envelope (``parallel/envelope.py``) against
+the budget before the first plan dispatches, and refuses the whole grid
+with ``PlanOverBudget`` when any plan exceeds it, as the JAX package's
+pre-flight does.
+
 With telemetry on (``obs``), the sweep emits the JAX package's spans and
 counters: ``scores.fit`` and ``scores.score`` (one of each a fold here,
 with ``fold=``; one a config there), ``scores.config`` (fused),
@@ -46,6 +52,7 @@ quarantine ``fault`` event. The fit spans carry ``k1_launches`` and
 telemetry adds none.
 """
 
+import os
 import time
 
 import numpy as np
@@ -61,7 +68,7 @@ from flake16_framework_tpu_torch.ops.metrics import (
 )
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
-from flake16_framework_tpu_torch.parallel import planner
+from flake16_framework_tpu_torch.parallel import envelope, planner
 from flake16_framework_tpu_torch.parallel.folds import (
     fold_masks, lopo_fold_masks,
 )
@@ -82,6 +89,76 @@ SEED = 0  # the config keys' root seed, as the reference's
 # batch; LOPO's 26 folds in three): 11.7 GB (RF) and 12.7 GB (ET) peak
 # allocated on an H100 (``chip_smoke.py``); about 8 GB for 200 exact ones.
 TREES_IN_FLIGHT = {"hist": 1000, "exact": 200}
+
+
+def batch_bounds(n_trees, use_hist, dispatch_trees=None,
+                 dispatch_folds=None):
+    """(trees, folds) a tree batch of the fold-batched fit holds at most:
+    the dispatch bounds where given, else as many as ``TREES_IN_FLIGHT``
+    allows. ``dispatch_folds`` is the JAX package's keyword; no entry
+    point of the port sets it (the CLI's ``dispatch=N`` is
+    ``dispatch_trees``)."""
+    budget = TREES_IN_FLIGHT["hist" if use_hist else "exact"]
+    tree_chunk = dispatch_trees or min(n_trees, budget)
+    return tree_chunk, dispatch_folds or max(1, budget // tree_chunk)
+
+
+class PlanOverBudget(ValueError):
+    """A family plan's peak-memory envelope exceeds the configured device
+    budget (``F16_DEVICE_BUDGET_MB``): raised by the pre-flight before any
+    plan dispatches, so an over-budget grid refuses on the host instead
+    of running out of memory hours into the sweep."""
+
+
+def plan_envelope(plan, grow_kw=None, *, n_projects, max_depth, grower,
+                  device_type, dispatch_trees=None, dispatch_folds=None,
+                  detail=False):
+    """``envelope.plan_envelope`` of ``plan`` as ``SweepEngine.run_plan``
+    runs it: on the histogram grower at the window width ``grow_kw``
+    names (``run_plan``'s tuned width), else ``trees.default_node_batch``
+    of ``device_type``, in the tree batches of ``batch_bounds``."""
+    n_trees = plan.shape[2]
+    hist = trees.hist_tier_default(n_trees, grower)
+    width = ((grow_kw or {}).get("node_batch")
+             or trees.default_node_batch(device_type)) if hist else None
+    tree_chunk, fold_chunk = batch_bounds(n_trees, hist, dispatch_trees,
+                                          dispatch_folds)
+    return envelope.plan_envelope(
+        plan, n_projects=n_projects, max_depth=max_depth, hist=hist,
+        width=width, tree_chunk=tree_chunk, fold_chunk=fold_chunk,
+        device_type=device_type, detail=detail)
+
+
+def _preflight_plan_budget(plans, *, n_projects, max_depth, grower,
+                           device_type="cuda", grow_kws=None,
+                           dispatch_trees=None, dispatch_folds=None):
+    """The sweep's budget pre-flight: when ``F16_DEVICE_BUDGET_MB`` is
+    set, bound every plan's peak device memory (``plan_envelope``, each
+    plan at its ``grow_kws`` entry) and refuse the whole sweep with
+    ``PlanOverBudget`` if any exceeds the budget, naming each such plan
+    in ``plans``' order. Unset, empty or at most 0, it computes nothing."""
+    raw = os.environ.get("F16_DEVICE_BUDGET_MB", "")
+    if not raw:
+        return
+    budget_mb = float(raw)
+    if budget_mb <= 0:
+        return
+    over = []
+    for pl, kw in zip(plans, grow_kws or [None] * len(plans)):
+        env = plan_envelope(pl, kw, n_projects=n_projects,
+                            max_depth=max_depth, grower=grower,
+                            device_type=device_type,
+                            dispatch_trees=dispatch_trees,
+                            dispatch_folds=dispatch_folds)
+        peak_mb = env["peak_bytes"] / 2**20
+        if peak_mb > budget_mb:
+            over.append(f"{'/'.join(pl.family)} (batch={pl.batch}): "
+                        f"peak {peak_mb:.1f} MB")
+    if over:
+        raise PlanOverBudget(
+            f"plan pre-flight: {len(over)} of {len(plans)} family "
+            f"program(s) exceed the F16_DEVICE_BUDGET_MB={budget_mb:g} "
+            f"device budget: " + "; ".join(over))
 
 
 def _key_bytes(fold_keys):
@@ -107,14 +184,17 @@ class SweepEngine:
     clocks in ``amortized_configs`` (``pipeline`` writes both beside the
     pickle). ``dispatch_trees``/``dispatch_folds`` bound the trees and
     folds a batch grows; ``grower`` is the ensembles' grower
-    (``trees.ensemble_grower``)."""
+    (``trees.ensemble_grower``). ``preflight=False`` skips the budget
+    pre-flight: the audit's recorded run (``analysis/ir.py``) measures
+    every plan and holds the budget against what it measured."""
 
     def __init__(self, features, labels_raw, projects, project_names,
                  project_ids, *, max_depth=48, tree_overrides=None,
                  cv="stratified", device=None, fused=False,
                  planner_mode=False, dispatch_trees=None,
-                 dispatch_folds=None, grower=None):
+                 dispatch_folds=None, grower=None, preflight=True):
         self.device = resolve(device)
+        self.preflight = preflight
         trees.ensemble_grower(grower)               # a bad value raises now
         self.grower = grower
         self.fused = fused
@@ -292,14 +372,9 @@ class SweepEngine:
         obs.counter_add("trees", n_configs * self.n_folds * n_trees)
 
     def _batch_bounds(self, n_trees, use_hist):
-        """(trees, folds) a tree batch of the fold-batched fit holds at
-        most: the dispatch bounds where given, else as many as
-        ``TREES_IN_FLIGHT`` allows. ``dispatch_folds`` is the JAX
-        package's keyword; no entry point of the port sets it (the CLI's
-        ``dispatch=N`` is ``dispatch_trees``)."""
-        budget = TREES_IN_FLIGHT["hist" if use_hist else "exact"]
-        tree_chunk = self.dispatch_trees or min(n_trees, budget)
-        return tree_chunk, self.dispatch_folds or max(1, budget // tree_chunk)
+        """``batch_bounds`` under this engine's dispatch bounds."""
+        return batch_bounds(n_trees, use_hist, self.dispatch_trees,
+                            self.dispatch_folds)
 
     def _fit_count_folds(self, config_keys, **grow_kw):
         """The fold-batched fit of one config: each fold resampled in
@@ -350,7 +425,20 @@ class SweepEngine:
             self.journal.record_config(config_keys, result)
         return result
 
-    def run_plan(self, plan, guard):
+    def plan_grow_kw(self, plan):
+        """The hist grower's extra keywords for ``plan``: the performance
+        database's tuned window width at the plan's shape
+        (``perfdb.tuned_fit_overrides``, sanitized there to K1's
+        shared-memory bound), asked once a plan; {} for the exact
+        grower or without a usable row."""
+        model_name = plan.family[1]
+        if not trees.hist_tier_default(self._spec(model_name).n_trees,
+                                       self.grower):
+            return {}
+        return perfdb.tuned_fit_overrides(self.device.type, plan.shape,
+                                          model=model_name)
+
+    def run_plan(self, plan, guard, grow_kw):
         """Run a ``planner.Plan``'s members one after another (the port's
         analogue of the JAX package's ``lax.map`` over a plan), each
         through the fold-batched fit, so each keeps its own step count.
@@ -369,17 +457,12 @@ class SweepEngine:
         members join ``fused_configs`` (and, for a plan of more than one
         config, ``amortized_configs``).
 
-        A hist family asks the performance database once for a tuned
-        window width at the plan's shape (``perfdb.tuned_fit_overrides``,
-        sanitized there to K1's shared-memory bound); the width never
-        changes a forest, and without a usable row (or with the width
+        ``grow_kw`` are the hist grower's extra keywords
+        (``plan_grow_kw``, which the pre-flight read too): a tuned window
+        width never changes a forest, and without one (or with the width
         pinned by the operator) the grower keeps its own
         (``trees.default_node_batch``). The exact grower takes none."""
         fs_name, model_name = plan.family
-        grow_kw = perfdb.tuned_fit_overrides(
-            self.device.type, plan.shape, model=model_name) \
-            if trees.hist_tier_default(self._spec(model_name).n_trees,
-                                       self.grower) else {}
         with obs.span("scores.plan", key=(fs_name, model_name, plan.batch),
                       counts=launch_counts, stage="plan",
                       batch=len(plan.configs), pad=plan.pad,
@@ -428,7 +511,9 @@ class SweepEngine:
         With ``planner_mode`` configs with journaled folds resume first,
         on ``run_config``'s fold-granular path; the rest run as plans
         (one a family, ``planner.plan_grid``'s order, ``run_plan``), each
-        member guarded as a config of its own."""
+        member guarded as a config of its own. Between the two, the
+        budget pre-flight (``_preflight_plan_budget``) may refuse every
+        plan with ``PlanOverBudget`` before the first one dispatches."""
         scores = dict(ledger or {})
         if config_list is None:
             config_list = cfg.iter_config_keys()
@@ -454,11 +539,20 @@ class SweepEngine:
         # plan_lookup``; None without a database): a pad only widens the
         # Plan record, since members run one after another and pads never
         # run.
-        for pl in planner.plan_grid(
-                [k for k in todo if k not in single], devices=1,
-                n=self.features.shape[0], n_folds=self.n_folds,
-                tree_overrides=self.tree_overrides,
-                perf_lookup=perfdb.plan_lookup(self.device.type)):
-            for keys, res in zip(pl.configs, self.run_plan(pl, guard)):
+        plans = planner.plan_grid(
+            [k for k in todo if k not in single], devices=1,
+            n=self.features.shape[0], n_folds=self.n_folds,
+            tree_overrides=self.tree_overrides,
+            perf_lookup=perfdb.plan_lookup(self.device.type))
+        grow_kws = [self.plan_grow_kw(pl) for pl in plans]
+        if self.planner_mode and self.preflight:
+            _preflight_plan_budget(
+                plans, n_projects=len(self.project_names),
+                max_depth=self.max_depth, grower=self.grower,
+                device_type=self.device.type, grow_kws=grow_kws,
+                dispatch_trees=self.dispatch_trees,
+                dispatch_folds=self.dispatch_folds)
+        for pl, kw in zip(plans, grow_kws):
+            for keys, res in zip(pl.configs, self.run_plan(pl, guard, kw)):
                 put(keys, res)
         return scores

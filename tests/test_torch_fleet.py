@@ -147,6 +147,18 @@ def _run_events(tel_root):
     return out
 
 
+def _span_traces(run_dir, name):
+    """Trace ids of the ``name`` spans a run has written whole (a line
+    still being written is skipped)."""
+    path = os.path.join(run_dir, jschema.EVENTS_FILE)
+    if not os.path.exists(path):
+        return set()
+    with open(path) as fd:
+        lines = [ln for ln in fd if ln.endswith("\n") and ln.strip()]
+    return {e.get("trace_id") for e in map(json.loads, lines)
+            if e.get("name") == name}
+
+
 # -- wire ----------------------------------------------------------------
 
 
@@ -605,12 +617,18 @@ def test_fleet_trace_stitched_alike_by_both_packages(fleet_pair, registry,
     _, router, tel_root = fleet_pair
     feats, _ = data
     monkeypatch.setenv("F16_TRACE_SAMPLE", "1")
-    obs.configure(root=tel_root, heartbeat_s=0)
+    run_dir = obs.configure(root=tel_root, heartbeat_s=0)
     try:
         for i in range(3):
             router.score(registry.ids()[0], feats[i:i + 2], timeout=60)
     finally:
         obs.shutdown()
+    # A worker writes its ``serve.request`` span after its answer is on
+    # the wire: wait until each request's span is on disk.
+    sent = _span_traces(run_dir, "fleet.request")
+    _wait_for(lambda: sent <= set().union(*(
+        _span_traces(os.path.join(tel_root, name), "serve.request")
+        for name in os.listdir(tel_root) if name.startswith("run-"))))
     runs = [(m, e) for _, m, e in ttrace.fleet_runs(tel_root)]
     got = ttrace.fleet_chrome_trace(runs)
     assert got == jtrace.fleet_chrome_trace(runs)

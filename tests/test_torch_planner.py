@@ -152,8 +152,8 @@ def test_planner_sweep_matches_default_path(default_scores):
     eng = _engine(planner_mode=True)
     runs = []
     real = eng.run_plan
-    eng.run_plan = lambda pl, guard: runs.append(pl.configs) or real(
-        pl, guard)
+    eng.run_plan = lambda pl, guard, kw: runs.append(pl.configs) or real(
+        pl, guard, kw)
     got = eng.run_grid(CONFIGS)
     assert sorted(got) == sorted(CONFIGS)
     assert sorted(len(r) for r in runs) == [1, 2, 3]   # a plan a family
