@@ -46,6 +46,17 @@ exit non-zero with ``PlanOverBudget`` naming exactly the four hist plans
 at the envelopes computed here, launch no K1, and leave no ``scores.pkl``
 and no journal record.
 
+``config_batch_path`` runs the config-batched sweep (the JAX package's
+mesh path) on one card: four Decision Trees as one batch with a journal
+(``run_grid(batch_size=4)``: 40 exact trees, one level serving every
+config) and two Random Forests whose preprocessing (None, PCA) gives them
+different bin edges as one batch (2 x 10 x 100 trees in tree batches of
+1,000 over 20 groups through K1), each after the same configs through
+``run_config``: counts bitwise equal, walls, launches and peak memory
+both ways, the DT batch's device idle share, and K1 bitwise against its
+plain version on one recorded step of the RF batch. With more than one
+card visible the DT batch also runs split across them.
+
 Three drills hold the crash tolerance of ``scores`` on the card, on an RF,
 an ET and a Decision Tree config at full width, each against the scores
 path's results: a kill drill (a SIGKILL right after the journal fsyncs
@@ -218,6 +229,19 @@ GRID_CONFIGS = (
     DT_CONFIGS[0],
 )
 N_EXPLAIN, N_BACKGROUND = 64, 32
+# The config-batched sweep's phase: four Decision Trees as one batch of
+# the exact grower, and two Random Forests whose preprocessing (None,
+# PCA) gives them different bin edges, as one batch of the hist grower.
+BATCH_DT_CONFIGS = (
+    ("NOD", "Flake16", "None", "None", "Decision Tree"),
+    ("NOD", "Flake16", "Scaling", "SMOTE", "Decision Tree"),
+    ("OD", "Flake16", "PCA", "Tomek Links", "Decision Tree"),
+    ("OD", "Flake16", "Scaling", "ENN", "Decision Tree"),
+)
+BATCH_RF_CONFIGS = (
+    ("NOD", "Flake16", "None", "SMOTE", "Random Forest"),
+    ("NOD", "Flake16", "PCA", "SMOTE", "Random Forest"),
+)
 N_TESTS, N_PROJECTS, N_BINS, NODE_BATCH = 4000, 26, 64, 128
 
 
@@ -1305,6 +1329,213 @@ def check_batched_steps(tests_file):
             "device_bound_share": sum(bounds) / device_sum_ms,
             "in_window_share_mean": float(np.mean(shares)),
             "rows_mean": float(np.mean(rows))}
+
+
+def _batch_engine(tests_file, **kw):
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    return SweepEngine(*tests_to_arrays(load_tests(tests_file)), **kw)
+
+
+def _timed_grid(engine, configs, **kw):
+    """(results, wall s, launches, peak allocated GB) of ``engine.run_grid
+    (configs, **kw)``, the counts set to 0 just before and read after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.time()
+    got = engine.run_grid(list(configs), **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return got, wall, _read_counts(), \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _same_values(got, want, configs, what):
+    for k in configs:
+        _require(pickle.dumps(got[k][2:]) == pickle.dumps(want[k][2:]),
+                 f"{what}: {'/'.join(k)} differs from run_config")
+
+
+def run_config_batch_path(tmp, tj):
+    """The config-batched sweep on one card at the paper's shape. Four
+    Decision Trees as one batch (``run_grid(batch_size=4)``, a journal
+    on: 40 exact trees, one level serving every config) and the two
+    Random Forests as one batch (2 x 10 folds x 100 trees in tree batches
+    of 50 under ``TREES_IN_FLIGHT``, each fold reading its config's bin
+    edges), each after the same configs through ``run_config``: counts
+    bitwise equal, walls, launches and peak memory both ways. The DT
+    batch runs twice more without the journal, timed and under the
+    profiler, for its device idle share.
+    One BFS step of the RF batch (the fifth K1 launch: 1,000 trees over
+    20 groups) is held bitwise against ``cum_hists_plain``. With more
+    than one card visible the DT batch also runs split across all of
+    them; with one, the split is held on the CPU only (the CPU tests).
+    Returns (the batches' launches, the report)."""
+    from flake16_framework_tpu_torch import pipeline
+    from flake16_framework_tpu_torch.device import default_devices
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+    from flake16_framework_tpu_torch.ops import trees
+    from flake16_framework_tpu_torch.resilience import journal as rjournal
+
+    rep = {"cards": torch.cuda.device_count(), "parts_s": {}}
+    launches = {"hist_cumsum": 0, "treeshap_unit": 0}
+    mark = [time.time()]
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def part(name):
+        now = time.time()
+        rep["parts_s"][name] = now - mark[0]
+        mark[0] = now
+
+    # DT: each through run_config, then one batch of four with a journal,
+    # then the batch bare (no journal), timed and once more profiled.
+    one = _batch_engine(tj)
+    ref, ref_wall, ref_counts, ref_peak = _timed_grid(one, BATCH_DT_CONFIGS)
+    part("dt_run_config")
+    batch = _batch_engine(tj)
+    path = os.path.join(tmp, "config_batch.journal")
+    jr = rjournal.SweepJournal.open(path, pipeline._journal_fingerprint(
+        batch, cv="stratified", max_depth=48, tree_overrides=None))
+    batch.journal = jr
+    try:
+        opened, opened_s = jr.n_appends, jr.append_wall_s
+        dt, dt_wall, dt_counts, dt_peak = _timed_grid(
+            batch, BATCH_DT_CONFIGS, batch_size=4)
+        n_appends = jr.n_appends - opened
+        append_s = jr.append_wall_s - opened_s
+    finally:
+        jr.close(remove=True)
+        batch.journal = None
+    add(dt_counts)
+    _require(batch.amortized_configs == set(BATCH_DT_CONFIGS),
+             "the DT configs did not run as one batch")
+    _require(n_appends == len(BATCH_DT_CONFIGS) * 11,
+             f"{n_appends} journal appends for the DT batch")
+    _same_values(dt, ref, BATCH_DT_CONFIGS, "DT batch")
+    _require(dt_counts["hist_cumsum"] == 0 == ref_counts["hist_cumsum"],
+             "a Decision Tree launched K1")
+    part("dt_batch")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    batch.run_config_batch(BATCH_DT_CONFIGS)
+    torch.cuda.synchronize()
+    bare_wall = time.time() - t0
+    # both traced on the device only
+    kernels = _profiled(lambda: batch.run_config_batch(BATCH_DT_CONFIGS),
+                        host=False)
+    busy_ms = sum(k[0] for k in kernels)
+    part("dt_batch_bare_and_profiled")
+    one_launches = sum(k[2] for k in _profiled(
+        lambda: one.run_grid(list(BATCH_DT_CONFIGS)), host=False))
+    part("dt_run_config_profiled")
+    rep["dt"] = {
+        "configs": ["/".join(k) for k in BATCH_DT_CONFIGS],
+        "batch_wall_s": dt_wall, "per_config_wall_s": ref_wall,
+        "journal_appends": n_appends, "journal_append_wall_s": append_s,
+        "batch_bare_wall_s": bare_wall,
+        "batch_launches": sum(k[2] for k in kernels),
+        "per_config_launches": one_launches,
+        "batch_device_busy_ms": busy_ms,
+        "batch_device_idle_share": 1.0 - busy_ms / 1e3 / bare_wall,
+        "batch_peak_allocated_gb": dt_peak,
+        "per_config_peak_allocated_gb": ref_peak}
+
+    # RF: one batch of two (None, PCA), one BFS step recorded from it.
+    step = []
+    real = trees.cum_hists
+    seen = [0]
+
+    def recorder(rel, w, wy, bin_t, n_nodes, n_bins):
+        seen[0] += 1
+        if seen[0] == 5:
+            step.extend([rel.clone(), w.clone(), wy.clone(), bin_t.clone(),
+                         n_nodes, n_bins])
+        return real(rel, w, wy, bin_t, n_nodes, n_bins)
+
+    ref, ref_wall, ref_counts, ref_peak = _timed_grid(one, BATCH_RF_CONFIGS)
+    part("rf_run_config")
+    trees.cum_hists = recorder
+    try:
+        rf, rf_wall, rf_counts, rf_peak = _timed_grid(
+            batch, BATCH_RF_CONFIGS, batch_size=2)
+    finally:
+        trees.cum_hists = real
+    add(rf_counts)
+    part("rf_batch")
+    _require(set(BATCH_RF_CONFIGS) <= batch.amortized_configs,
+             "the RF configs did not run as one batch")
+    _same_values(rf, ref, BATCH_RF_CONFIGS, "RF batch")
+    _require(rf_counts["hist_cumsum"] > 0, "the RF batch launched no K1")
+    rep["rf"] = {
+        "configs": ["/".join(k) for k in BATCH_RF_CONFIGS],
+        "batch_wall_s": rf_wall, "per_config_wall_s": ref_wall,
+        "batch_k1_launches": rf_counts["hist_cumsum"],
+        "per_config_k1_launches": ref_counts["hist_cumsum"],
+        "batch_peak_allocated_gb": rf_peak,
+        "per_config_peak_allocated_gb": ref_peak}
+
+    # K1 on the recorded step, against its plain version.
+    _require(step, "no fifth BFS step in the RF batch")
+    trees_in, groups = int(step[0].shape[0]), int(step[3].shape[0])
+    _require(groups == 20, f"the recorded step has {groups} groups")
+    got = cum_hists(*step)
+    want = cum_hists_plain(*step)
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+             "hist_cumsum differs from plain on a config-batched step")
+    rep["k1_step"] = {"trees": trees_in, "groups": groups,
+                      "max_abs_err": max(float((a - b).abs().max())
+                                         for a, b in zip(got, want))}
+    del got, want, step
+    part("k1_step")
+
+    if rep["cards"] > 1:
+        split = _batch_engine(tj, devices=default_devices())
+        got, wall, counts, _ = _timed_grid(split, BATCH_DT_CONFIGS)
+        _same_values(got, dt, BATCH_DT_CONFIGS, "DT batch across cards")
+        add(counts)
+        rep["split_wall_s"] = wall
+    return launches, rep
+
+
+def print_config_batch(cb, launches, smi):
+    dt, rf = cb["dt"], cb["rf"]
+    print(f"config_batch DT ({smi}): {len(dt['configs'])} configs as one "
+          f"batch {dt['batch_wall_s']:.3f} s (journal "
+          f"{dt['journal_appends']} appends in "
+          f"{dt['journal_append_wall_s']:.3f} s) against run_config "
+          f"{dt['per_config_wall_s']:.3f} s, bitwise equal; bare batch "
+          f"{dt['batch_bare_wall_s']:.3f} s, {dt['batch_launches']} "
+          f"launches against run_config's {dt['per_config_launches']}, "
+          f"busy {dt['batch_device_busy_ms']:.1f} ms, idle "
+          f"{dt['batch_device_idle_share']:.1%}; peak allocated "
+          f"{dt['batch_peak_allocated_gb']:.3f} GB against "
+          f"{dt['per_config_peak_allocated_gb']:.3f} GB", flush=True)
+    print(f"config_batch RF ({smi}): None and PCA as one batch "
+          f"{rf['batch_wall_s']:.3f} s against run_config "
+          f"{rf['per_config_wall_s']:.3f} s, bitwise equal; K1 "
+          f"{rf['batch_k1_launches']} launches against "
+          f"{rf['per_config_k1_launches']}; peak allocated "
+          f"{rf['batch_peak_allocated_gb']:.3f} GB against "
+          f"{rf['per_config_peak_allocated_gb']:.3f} GB", flush=True)
+    k = cb["k1_step"]
+    print(f"config_batch K1 step ({k['trees']} trees, {k['groups']} "
+          f"groups): bitwise == plain; launches on the batches "
+          f"{launches}; parts (s) {json.dumps(cb['parts_s'])}", flush=True)
+    if cb["cards"] > 1:
+        print(f"config_batch: {cb['cards']} cards visible; the DT batch "
+              f"split across them in {cb['split_wall_s']:.3f} s, bitwise "
+              f"equal", flush=True)
+    else:
+        print("config_batch: 1 card visible; the split across cards is "
+              "held on the CPU only (tests/test_torch_configbatch.py)",
+              flush=True)
 
 
 def profile_member(tests_file, config, wall_s):
@@ -2647,14 +2878,14 @@ def _device_kernels(prof):
                    for name, (ns, count) in by_name.items()), reverse=True)
 
 
-def _profiled(fn):
-    """Run ``fn`` under the profiler (CPU and CUDA) and return its device
-    kernels (``_device_kernels``)."""
+def _profiled(fn, host=True):
+    """Run ``fn`` under the profiler (CPU, unless not ``host``, and CUDA)
+    and return its device kernels (``_device_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return _device_kernels(prof)
@@ -3744,6 +3975,9 @@ def main():
               f"{', '.join(f for f, _ in budget['child_named'])}; launches "
               f"{budget['child_launches']}; left {budget['child_left']}; "
               f"wall {budget['child_wall_s']:.2f} s", flush=True)
+        batch_launches, cb = run_config_batch_path(tmp, tj)
+        lap("config_batch_path")
+        print_config_batch(cb, batch_launches, smi)
         batched = check_batched_steps(tj)
         lap("hist_cumsum_batched_steps")
         print(f"hist_cumsum fold-batched steps {batched['config']} "
@@ -3952,6 +4186,7 @@ def main():
 
     paths = {"scores": score_launches, "telemetry": tel_launches,
              "planner": planner_launches,
+             "config_batch": batch_launches,
              "lopo": lopo_launches,
              "shap": shap_launches, "shap_grid": grid_launches,
              "serve": serve_launches, "fleet": fleet_launches,
@@ -3974,6 +4209,7 @@ def main():
               "planner_path": members, "planner_path_wall_s": pwall,
               "planner_path_journal": pjournal,
               "budget_preflight": budget,
+              "config_batch_path": cb,
               "hist_batched_steps": batched, "planner_profile": member_prof,
               "kill_drill": kill, "sticky_fault_drill": sticky,
               "oom_drill": oom, "lopo_path": lopo_cfgs,

@@ -26,6 +26,9 @@ _loaded = {}
 # Held by each wrapper around the increment of its ``launches`` count,
 # which the scoring service's dispatcher threads reach concurrently.
 COUNT_LOCK = threading.Lock()
+# Held around a library's first load, which the sweep's card workers can
+# reach together: one build a library.
+_LOAD_LOCK = threading.Lock()
 
 
 def launch_counts():
@@ -93,7 +96,8 @@ def build(*names):
 
 def load(name):
     """The ctypes handle of kernel library ``name``, built if needed."""
-    if name not in _loaded:
-        build(name)
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    return _loaded[name]
+    with _LOAD_LOCK:
+        if name not in _loaded:
+            build(name)
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _loaded[name]

@@ -451,23 +451,30 @@ def manifest_update(**fields):
         _dump_manifest(state, manifest)
 
 
-def record_device_manifest(device):
+def record_device_manifest(device, devices=None):
     """Stamp the device facts into the manifest, under the JAX package's
     names: ``backend`` (the torch device type, ``cuda`` or ``cpu``),
     ``device_kind`` (``torch.cuda.get_device_name``, or ``cpu``),
     ``device_count``, and ``torch_version`` and ``cuda_version`` in place
-    of ``jax_version``. No-op when off."""
+    of ``jax_version``. With ``devices``, the device list a sweep splits
+    its config batches over, ``device_count`` is its length and
+    ``mesh_shape`` ``{"config": D}``, as the JAX package records its
+    mesh. No-op when off."""
     if _state is None:
         return
     import torch
 
     device = torch.device(device)
     cuda = device.type == "cuda"
-    manifest_update(
+    fields = dict(
         backend=device.type,
         device_kind=torch.cuda.get_device_name(device) if cuda else "cpu",
         device_count=torch.cuda.device_count() if cuda else 1,
         torch_version=torch.__version__, cuda_version=torch.version.cuda)
+    if devices is not None:
+        fields.update(device_count=len(devices),
+                      mesh_shape={"config": len(devices)})
+    manifest_update(**fields)
 
 
 # -- heartbeat ----------------------------------------------------------

@@ -29,10 +29,13 @@ one number a level. Which grower a config takes is
 ``hist_tier_default``'s rule alone.
 
 Both growers also take a fold batch (``fit_folds_hist``, ``fit_folds``):
-the trees of G folds, each fold with its own samples and keys, grow as one
-batch, one BFS step or one level serving every fold; ``predict_batch``
-predicts the folds' forests as one batch. Each fold's forest is the one
-its one-fold fit grows, bit for bit.
+the trees of G groups, each group with its own samples and keys, grow as
+one batch, one BFS step or one level serving every group; a group is a
+fold of a config, and a config-batched sweep puts several configs' folds
+on the group axis (on the histogram grower each group then reads its own
+config's bin edges). ``predict_batch`` predicts the folds' forests as one
+batch. Each group's forest is the one its one-fold fit grows, bit for
+bit.
 
 Weights are small integers, so every histogram and prefix sum is exact in
 f32 in any order. ``argmax`` takes the first maximum (the lowest boundary,
@@ -123,7 +126,11 @@ def quantile_edges(x):
 
 
 def bin_indices(x, edges):
-    """Bin index [..., N, F] int64: the count of edges strictly below x."""
+    """Bin index [..., N, F] int64: the count of edges strictly below x.
+    ``edges`` [F, B-1] serve every row; [G, F, B-1] (x [G, N, F]) are one
+    set a group."""
+    if edges.dim() == 3:
+        edges = edges[:, None]
     return (x[..., None] > edges).sum(-1)
 
 
@@ -219,15 +226,15 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
                 max_depth, max_nodes, node_batch):
     """Grow a batch of T trees on G groups of samples: x [G, N, F], their
     bins bin_t [G, F, N] and labels y01 [G, N]; the bin edges [F, B-1]
-    are shared. Per-tree weights w [T, N] and grower keys kg [T, 2]; tree
-    t belongs to group t // (T / G). Returns the Forest field tensors
-    (feature, threshold, left, right, value, n_nodes), tree axis T, node
-    axis cut to ``max_nodes``."""
+    are shared, or [G, F, B-1] are a group's. Per-tree weights w [T, N]
+    and grower keys kg [T, 2]; tree t belongs to group t // (T / G).
+    Returns the Forest field tensors (feature, threshold, left, right,
+    value, n_nodes), tree axis T, node axis cut to ``max_nodes``."""
     dev = x.device
     n_group = x.shape[0]
     n_tree, n = w.shape
     tpg = n_tree // n_group                                  # trees a group
-    n_feat, n_bins = edges.shape[0], edges.shape[1] + 1
+    n_feat, n_bins = edges.shape[-2], edges.shape[-1] + 1
     bw = min(node_batch, max_nodes)
     m_pad = max_nodes + 2 * bw
     iota_w = torch.arange(bw, device=dev)
@@ -245,6 +252,17 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
         if n_group == 1:
             return t[0][f, sample_ix]
         return t[group_ix, f.view(n_group, tpg, n), sample_ix].view(n_tree, n)
+
+    if edges.dim() == 2:
+        def edge_at(t, b):
+            """t [F, K] at each tree's feature and index b [T, F, W]."""
+            return t[feat_ix, b]
+    else:
+        tree_group = (iota_t // tpg)[:, None, None]          # [T, 1, 1]
+
+        def edge_at(t, b):
+            """t [G, F, K] at each tree's group, feature and b."""
+            return t[tree_group, feat_ix, b]
 
     feature = torch.full((n_tree, m_pad), -1, dtype=torch.int32, device=dev)
     threshold = torch.zeros((n_tree, m_pad), dtype=x.dtype, device=dev)
@@ -265,9 +283,12 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
     if random_splits:
         # Node value span from the occupied bins' edge values; the end
         # bins extrapolate one neighbour width.
-        first = edges[:, :1] - (edges[:, 1:2] - edges[:, :1])
-        last = edges[:, -1:] + (edges[:, -1:] - edges[:, -2:-1])
-        full_edges = torch.cat([first, edges, last], 1)      # [F, B+1]
+        first = edges[..., :1] - (edges[..., 1:2] - edges[..., :1])
+        last = edges[..., -1:] + (edges[..., -1:] - edges[..., -2:-1])
+        full_edges = torch.cat([first, edges, last], -1)     # [(G,) F, B+1]
+        # each tree's edges, [T or 1, F, 1, B-1]
+        tree_edges = edges[None, :, None, :] if edges.dim() == 2 \
+            else edges[tree_group[:, 0]].transpose(1, 2)
 
     while bool((p < a).any()):                   # the one host sync a step
         ids = p[:, None] + iota_w                            # [T, W]
@@ -294,10 +315,10 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
             lo = torch.argmax(occ, -1)
             hi = n_bins - 1 - torch.argmax(torch.flip(occ, [-1]), -1)
             u = u_thr[iota_t[:, None], ids].permute(0, 2, 1)  # [T, F, W]
-            vmin = full_edges[feat_ix, lo]
-            vmax = full_edges[feat_ix, hi + 1]
+            vmin = edge_at(full_edges, lo)
+            vmax = edge_at(full_edges, hi + 1)
             thr_v = _fma(u, vmax - vmin, vmin)
-            cnt = (edges[None, :, None, :] < thr_v[..., None]).sum(-1)
+            cnt = (tree_edges < thr_v[..., None]).sum(-1)
             bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
             bm1 = torch.clamp(bsel - 1, 0, n_bins - 2)
             lw_j = lw.gather(-1, bm1[..., None])[..., 0]
@@ -307,7 +328,7 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
             score_j = _proxy_score(lw_j, lwy_j, rw_j,
                                    tot_wy[:, None, :] - lwy_j, ok_j)
             bound_j = bsel
-            thr_j = edges[feat_ix, bm1]
+            thr_j = edge_at(edges, bm1)
         else:
             score = _proxy_score(lw, lwy, rw, rwy, valid)    # [T, F, W, B-1]
             bb = torch.argmax(score, -1)                     # lowest boundary
@@ -315,7 +336,7 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
             bound_j = bb + 1
             lw_j = lw.gather(-1, bb[..., None])[..., 0]
             lwy_j = lwy.gather(-1, bb[..., None])[..., 0]
-            thr_j = edges[feat_ix, bb]
+            thr_j = edge_at(edges, bb)
 
         # ---- feature choice (sklearn's random feature draw) --------------
         u_f = u_feat[iota_t[:, None], ids]                   # [T, W, F]
@@ -445,7 +466,9 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
     one tree batch. x [G, N, F] f32, y [G, N] bool/int, w [G, N] >= 0
     sample weights (0 = row excluded) and ``keys`` [G, 2] threefry keys,
     one a fold; ``edges`` [F, HIST_BINS-1] are shared by the folds (once a
-    config). Returns a ``Forest`` with [G, n_trees, ...] leading axes.
+    config), or [G, F, HIST_BINS-1] are one set a group (a config batch:
+    each fold reads its own config's edges). Returns a ``Forest`` with
+    [G, n_trees, ...] leading axes.
 
     RandomForest = bootstrap, not random_splits; ExtraTrees = random_splits,
     no bootstrap; both with sqrt_features. Tree t of fold g draws from
@@ -477,7 +500,8 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
         if w_flat.data_ptr() % 16:
             w_flat = w_flat.clone()
         fields = _grow_trees(
-            x[gs], bin_t[gs], edges, y01[gs], w_flat,
+            x[gs], bin_t[gs], edges if edges.dim() == 2 else edges[gs],
+            y01[gs], w_flat,
             kg[gs, ts].reshape(-1, 2), random_splits=random_splits,
             max_features=max_features, max_depth=max_depth,
             max_nodes=max_nodes,

@@ -15,9 +15,11 @@ imports no torch.
 plan's members one after another, and a family's members share one
 static shape (``cap = 2N``, ``max_nodes = 2 cap``, ``Plan.shape``), so a
 plan's peak is its largest member's peak over what the engine keeps
-resident across members (``arg_bytes``: the labels, project ids and fold
-masks). Only the balancing changes a member's transients, through the kNN
-workspace, so the largest over the members' balancings is taken.
+resident across members (``arg_bytes``: the features, labels, project
+ids and fold masks). Only the balancing changes a member's transients,
+through the kNN workspace, so the largest over the members' balancings
+is taken. Across a device list each card runs its shard's members one
+after another, so a card's peak is its largest member's too.
 
 **A member's peak** is the largest of its phases' peaks. Each phase
 holds what the code still references and, at its worst statement, that
@@ -88,7 +90,7 @@ each phase's peak (``phases``).
 """
 
 from flake16_framework_tpu_torch import config as cfg
-from flake16_framework_tpu_torch.constants import HIST_BINS
+from flake16_framework_tpu_torch.constants import HIST_BINS, N_FEATURES
 
 F32 = I32 = 4
 I64 = 8
@@ -574,12 +576,12 @@ def member_envelope(keys, *, n, n_trees, n_folds, n_projects, max_depth,
 
 
 def _resident_bytes(*, n, n_folds, device_type):
-    """What ``SweepEngine`` keeps on the device across members: the raw
-    labels and project ids (int32 [N]) and each flaky type's train and
-    test fold masks (f32 [n_folds, N])."""
+    """What ``SweepEngine`` keeps on a card across members: the features
+    (f32 [N, N_FEATURES]), the raw labels and project ids (int32 [N]) and
+    each flaky type's train and test fold masks (f32 [n_folds, N])."""
     live = _Live(device_type)
     return sum(live.size(t) for t in (
-        [I32 * n, I32 * n]
+        [F32 * n * N_FEATURES, I32 * n, I32 * n]
         + [F32 * n_folds * n] * 2 * len(cfg.FLAKY_TYPES)))
 
 

@@ -29,6 +29,20 @@ Three ways to run a config, each giving the same counts:
   performance database (``obs/perfdb.py``): a recorded plan padding, and
   a tuned window width for a hist family; neither changes a result.
 
+The config-batched sweep (the JAX package's mesh path) takes the engine's
+device list (``devices=``; ``device.resolve_devices``): ``run_grid(...,
+batch_size=B)`` groups configs by family into batches of B, default the
+card count, and ``run_config_batch`` pads a batch to a multiple of the
+card count with its first config, splits it into contiguous shards, one a
+card, and on each card grows the shard's configs x folds as one tree batch
+on the growers' group axis, so one BFS step or one level serves every
+config of the shard. On one card a width above 1 still batches configs
+onto it. Plans under ``planner_mode`` are padded to the card count and
+each card runs its shard's members one after another. Each card is driven
+by a worker thread of its own under ``torch.cuda.device``; the calling
+thread keeps the guard, the journal and the results, and journals in
+canonical member order. No batching changes a result.
+
 With a write-ahead journal (``resilience/journal.py``) attached, a config
 resumes at fold granularity: the folds already journaled with matching
 keys are taken as they are, only the missing folds are fit. ``run_grid``
@@ -46,20 +60,24 @@ With telemetry on (``obs``), the sweep emits the JAX package's spans and
 counters: ``scores.fit`` and ``scores.score`` (one of each a fold here,
 with ``fold=``; one a config there), ``scores.config`` (fused),
 ``scores.plan``, the ``configs``/``folds``/``trees`` counters and the
-quarantine ``fault`` event. The fit spans carry ``k1_launches`` and
-``k2_launches``. Each span closes after a host read the path makes anyway
-(the fold's synchronize, the counts' copy, the guard's synchronize), so
-telemetry adds none.
+quarantine ``fault`` event, and for config batches ``scores.fit_batch``
+and ``scores.score_batch`` (staged) or ``scores.config_batch`` (fused).
+The fit spans carry ``k1_launches`` and ``k2_launches``. Each span closes
+after a host read the path makes anyway (the fold's synchronize, the
+counts' copy, the guard's synchronize), so telemetry adds none.
 """
 
+import contextlib
 import os
+import queue
+import threading
 import time
 
 import numpy as np
 import torch
 
 from flake16_framework_tpu_torch import config as cfg, obs, rng
-from flake16_framework_tpu_torch.device import resolve
+from flake16_framework_tpu_torch.device import resolve, resolve_devices
 from flake16_framework_tpu_torch.kernels.build import launch_counts
 from flake16_framework_tpu_torch.obs import perfdb
 from flake16_framework_tpu_torch.ops import trees
@@ -92,15 +110,25 @@ TREES_IN_FLIGHT = {"hist": 1000, "exact": 200}
 
 
 def batch_bounds(n_trees, use_hist, dispatch_trees=None,
-                 dispatch_folds=None):
-    """(trees, folds) a tree batch of the fold-batched fit holds at most:
+                 dispatch_folds=None, n_configs=1, n_folds=N_FOLDS):
+    """(trees, groups) a tree batch of the fold-batched fit holds at most:
     the dispatch bounds where given, else as many as ``TREES_IN_FLIGHT``
-    allows. ``dispatch_folds`` is the JAX package's keyword; no entry
-    point of the port sets it (the CLI's ``dispatch=N`` is
-    ``dispatch_trees``)."""
+    allows. For a batch of ``n_configs`` > 1 configs on one card, whose
+    groups are configs x ``n_folds`` folds, the trees in flight over all
+    of them are bounded: two RF configs grow in batches of 50 trees
+    (2 x 10 x 50 = 1,000), and ``dispatch_folds`` bounds each config's
+    folds. ``dispatch_folds`` is the JAX package's keyword; no entry point
+    of the port sets it (the CLI's ``dispatch=N`` is ``dispatch_trees``)."""
     budget = TREES_IN_FLIGHT["hist" if use_hist else "exact"]
-    tree_chunk = dispatch_trees or min(n_trees, budget)
-    return tree_chunk, dispatch_folds or max(1, budget // tree_chunk)
+    if dispatch_trees:
+        tree_chunk = dispatch_trees
+    elif n_configs > 1:
+        tree_chunk = min(n_trees, max(1, budget // (n_configs * n_folds)))
+    else:
+        tree_chunk = min(n_trees, budget)
+    if dispatch_folds:
+        return tree_chunk, dispatch_folds * n_configs
+    return tree_chunk, max(1, budget // tree_chunk)
 
 
 class PlanOverBudget(ValueError):
@@ -136,7 +164,10 @@ def _preflight_plan_budget(plans, *, n_projects, max_depth, grower,
     set, bound every plan's peak device memory (``plan_envelope``, each
     plan at its ``grow_kws`` entry) and refuse the whole sweep with
     ``PlanOverBudget`` if any exceeds the budget, naming each such plan
-    in ``plans``' order. Unset, empty or at most 0, it computes nothing."""
+    in ``plans``' order. Unset, empty or at most 0, it computes nothing.
+    The budget is a card's: across a device list each card runs its
+    shard's members one after another, so one member is in flight on a
+    card and a card's envelope is its member's."""
     raw = os.environ.get("F16_DEVICE_BUDGET_MB", "")
     if not raw:
         return
@@ -167,33 +198,132 @@ def _key_bytes(fold_keys):
     return [k.tobytes() for k in fold_keys.cpu().numpy().astype("<u4")]
 
 
+def _device_scope(device):
+    """``device`` as the calling thread's current CUDA device (so the
+    kernels' ``cudaSetDevice`` agrees with it); nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _drain(job, thunks, results):
+    """Run ``thunks`` in turn, putting (job, i, result, None) on
+    ``results`` after each, (job, None, None, error) on a failure, and
+    (job, -1, None, None) when the job has ended."""
+    try:
+        for i, thunk in enumerate(thunks):
+            results.put((job, i, thunk(), None))
+    # The failure crosses to the calling thread, which raises it inside
+    # the guard's call.
+    except Exception as e:
+        results.put((job, None, None, e))
+    results.put((job, -1, None, None))
+
+
+def _on_cards(jobs, on_result=None):
+    """Run each job, (card, [thunk, ...]), its thunks one after another on
+    its card: inline when there is one job, else in a worker thread a job,
+    each under its card's device. ``on_result(job, i, result)`` runs in
+    the calling thread as each thunk returns (the journal's writes, in
+    the caller's order). Returns [[result, ...] a job]. A failure is
+    raised after every worker has ended, so no card is still working when
+    the guard retries or salvages."""
+    results = [[] for _ in jobs]
+
+    def land(job, i, res):
+        results[job].append(res)
+        if on_result is not None:
+            on_result(job, i, res)
+
+    if len(jobs) == 1:
+        card, thunks = jobs[0]
+        for i, thunk in enumerate(thunks):
+            land(0, i, thunk())
+        return results
+    landed = queue.Queue()
+
+    def work(job, card, thunks):
+        with _device_scope(card.device):
+            _drain(job, thunks, landed)
+
+    workers = [threading.Thread(target=work, args=(j, card, thunks),
+                                name=f"f16-card-{j}", daemon=True)
+               for j, (card, thunks) in enumerate(jobs)]
+    for t in workers:
+        t.start()
+    errors = []
+    try:
+        live = len(workers)
+        while live:
+            job, i, res, err = landed.get()
+            if i == -1:
+                live -= 1
+            elif err is not None:
+                errors.append(err)
+            elif not errors:
+                land(job, i, res)
+    finally:
+        for t in workers:
+            t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+class _Card:
+    """What the sweep keeps on one card: its device, and its copies of the
+    features, the labels, the project ids and the fold masks."""
+
+    def __init__(self, device, features, labels, project_ids, masks):
+        self.device = device
+        self.features = torch.as_tensor(features, device=device)
+        self.labels_raw = torch.as_tensor(labels, device=device)
+        self.project_ids = torch.as_tensor(project_ids, device=device)
+        self.masks = {
+            fl_name: tuple(torch.as_tensor(m, device=device) for m in mm)
+            for fl_name, mm in masks.items()}
+
+
 class SweepEngine:
-    """Host driver of the grid on one device: ``run_config`` returns the
-    reference ``scores.pkl`` value ``[t_train, t_test, scores,
-    scores_total]``; ``run_grid`` runs many configs. ``cv="lopo"`` runs
+    """Runs the grid from the host over a device list: ``run_config`` returns
+    the reference ``scores.pkl`` value ``[t_train, t_test, scores,
+    scores_total]``; ``run_grid`` runs many configs, batching configs of a
+    family across the cards (``run_config_batch``) when its width is above
+    1. ``device`` is one device (default ``cuda``); ``devices``, a list
+    (``device.resolve_devices``), makes the engine keep a copy of the
+    data on each card and split batches and plans over them. The
+    per-config paths run on the first card. ``cv="lopo"`` runs
     leave-one-project-out CV, one fold a project. ``journal`` (a
     ``SweepJournal``, or None) makes configs fold-granular; configs that
     ``run_grid`` quarantined are in ``quarantined`` ({keys:
-    {"fault_class", "attempts"}}), and the faults it recovered from in
-    ``retries``.
+    {"fault_class", "attempts"}}), and the faults it recovered from, and
+    the batches or plans it salvaged config by config, in ``retries``.
 
-    ``fused=True`` runs each config through the fold-batched fit, with the
-    config's combined wall in T_TRAIN (T_TEST = 0.0); ``planner_mode=True``
-    makes ``run_grid`` run plans (``run_plan``). Configs with combined
-    clocks are listed in ``fused_configs``, those with plan-amortized
-    clocks in ``amortized_configs`` (``pipeline`` writes both beside the
-    pickle). ``dispatch_trees``/``dispatch_folds`` bound the trees and
-    folds a batch grows; ``grower`` is the ensembles' grower
+    ``fused=True`` runs each config (or batch) through the fold-batched
+    fit, with the combined wall in T_TRAIN (T_TEST = 0.0);
+    ``planner_mode=True`` makes ``run_grid`` run plans (``run_plan``).
+    Configs with combined clocks are listed in ``fused_configs``, those
+    with batch- or plan-amortized clocks in ``amortized_configs``
+    (``pipeline`` writes both beside the pickle).
+    ``dispatch_trees``/``dispatch_folds`` bound the trees and folds a
+    batch grows; ``grower`` is the ensembles' grower
     (``trees.ensemble_grower``). ``preflight=False`` skips the budget
     pre-flight: the audit's recorded run (``analysis/ir.py``) measures
     every plan and holds the budget against what it measured."""
 
     def __init__(self, features, labels_raw, projects, project_names,
                  project_ids, *, max_depth=48, tree_overrides=None,
-                 cv="stratified", device=None, fused=False,
+                 cv="stratified", device=None, devices=None, fused=False,
                  planner_mode=False, dispatch_trees=None,
                  dispatch_folds=None, grower=None, preflight=True):
-        self.device = resolve(device)
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            self.devices = resolve_devices(devices)
+            self.device = self.devices[0]
+        else:
+            self.device = resolve(device)
+            self.devices = [self.device]
         self.preflight = preflight
         trees.ensemble_grower(grower)               # a bad value raises now
         self.grower = grower
@@ -203,12 +333,8 @@ class SweepEngine:
         self.dispatch_folds = dispatch_folds
         self.features = np.asarray(features, dtype=np.float32)
         self.labels_host = np.asarray(labels_raw, np.int32)
-        self.labels_raw = torch.as_tensor(self.labels_host,
-                                          device=self.device)
         self.projects = projects
         self.project_names = project_names
-        self.project_ids = torch.as_tensor(
-            np.asarray(project_ids, np.int32), device=self.device)
         self.max_depth = max_depth
         self.tree_overrides = tree_overrides or {}
         labels = np.asarray(labels_raw)
@@ -222,9 +348,13 @@ class SweepEngine:
             masks = {fl_name: lopo for fl_name in cfg.FLAKY_TYPES}
         else:
             raise ValueError(f"unknown cv scheme {cv!r}")
-        self._masks = {
-            fl_name: tuple(torch.as_tensor(m, device=self.device) for m in mm)
-            for fl_name, mm in masks.items()}
+        pids = np.asarray(project_ids, np.int32)
+        self._cards = [_Card(dev, self.features, self.labels_host, pids,
+                             masks) for dev in self.devices]
+        # The first card's copies serve the per-config paths.
+        self.labels_raw = self._cards[0].labels_raw
+        self.project_ids = self._cards[0].project_ids
+        self._masks = self._cards[0].masks
         self._index = planner.canonical_indices()
         self.journal = None
         self.quarantined = {}
@@ -240,17 +370,18 @@ class SweepEngine:
                               spec.sqrt_features)
         return spec
 
-    def _prepare(self, config_keys):
-        """What every fold of a config shares: the preprocessed matrix, the
-        labels, the bin edges (histogram grower: once per config, from the
-        full preprocessed matrix) and the fit's keywords."""
+    def _prepare(self, config_keys, card=None):
+        """What every fold of a config shares, on ``card`` (default the
+        first): the preprocessed matrix, the labels, the bin edges
+        (histogram grower: once per config, from the full preprocessed
+        matrix) and the fit's keywords."""
+        card = card or self._cards[0]
         fl_label, cols, prep_code, bal_code, _ = cfg.resolve_config(
             config_keys)
         spec = self._spec(config_keys[4])
-        dev = self.device
-        x = torch.as_tensor(self.features[:, list(cols)], device=dev)
+        x = card.features[:, list(cols)]
         cap = 2 * x.shape[0]  # SMOTE at worst doubles the training set
-        y = self.labels_raw == fl_label
+        y = card.labels_raw == fl_label
         mu, wmat = fit_preprocess(x, prep_code)
         xp = transform(x, mu, wmat)
         use_hist = trees.hist_tier_default(spec.n_trees, self.grower)
@@ -262,10 +393,10 @@ class SweepEngine:
         return dict(y=y, xp=xp, edges=edges, use_hist=use_hist, cap=cap,
                     bal_code=bal_code, fit_kw=fit_kw)
 
-    def _fold_keys(self, config_keys):
+    def _fold_keys(self, config_keys, device=None):
         """The config's fold keys [n_folds, 2]: ``split(fold_in(
         PRNGKey(SEED), config index), n_folds)``."""
-        key = rng.fold_in(rng.prng_key(SEED, self.device),
+        key = rng.fold_in(rng.prng_key(SEED, device or self.device),
                           self._index[tuple(config_keys)])
         return rng.split(key, self.n_folds)
 
@@ -371,59 +502,202 @@ class SweepEngine:
         obs.counter_add("folds", n_configs * self.n_folds)
         obs.counter_add("trees", n_configs * self.n_folds * n_trees)
 
-    def _batch_bounds(self, n_trees, use_hist):
+    def _batch_bounds(self, n_trees, use_hist, n_configs=1):
         """``batch_bounds`` under this engine's dispatch bounds."""
         return batch_bounds(n_trees, use_hist, self.dispatch_trees,
-                            self.dispatch_folds)
+                            self.dispatch_folds, n_configs, self.n_folds)
 
-    def _fit_count_folds(self, config_keys, **grow_kw):
-        """The fold-batched fit of one config: each fold resampled in
-        turn, then their trees grown as tree batches (``_batch_bounds``),
-        the forests predicted as one batch, and the per-fold counts read
-        with one host read. ``grow_kw`` are extra keywords of the hist
-        grower (``run_plan``'s tuned ``node_batch``). Returns the counts,
-        int32 [n_folds, P, 3], each row equal to the default path's count
-        of that fold."""
-        p = self._prepare(config_keys)
-        fold_keys = self._fold_keys(config_keys)
-        train_mask, test_mask = self._masks[config_keys[0]]
+    def _fit_groups(self, configs, card, **grow_kw):
+        """The fold-batched fit of ``configs`` (one family) on ``card``:
+        each config prepared and its folds resampled in turn, then the
+        configs x folds grown as tree batches (``_batch_bounds``) on the
+        growers' group axis, group c * n_folds + f being fold f of config
+        c; on the histogram grower each group reads its config's bin
+        edges. ``grow_kw`` are extra keywords of the hist grower
+        (``run_plan``'s tuned ``node_batch``). Returns (the forest, with
+        [configs x folds, n_trees, ...] leading axes, the configs'
+        ``_prepare`` dicts)."""
+        preps = [self._prepare(k, card) for k in configs]
         xs, ys, ws, kfs = [], [], [], []
-        for f in range(self.n_folds):
-            kb, kf = rng.split(fold_keys[f]).unbind(0)
-            for out, t in zip((xs, ys, ws), resample(
-                    p["xp"], p["y"], train_mask[f], p["bal_code"], kb,
-                    p["cap"])):
-                out.append(t)
-            kfs.append(kf)
-        tree_chunk, fold_chunk = self._batch_bounds(p["fit_kw"]["n_trees"],
-                                                    p["use_hist"])
+        for keys, p in zip(configs, preps):
+            fold_keys = self._fold_keys(keys, card.device)
+            train_mask = card.masks[keys[0]][0]
+            for f in range(self.n_folds):
+                kb, kf = rng.split(fold_keys[f]).unbind(0)
+                for out, t in zip((xs, ys, ws), resample(
+                        p["xp"], p["y"], train_mask[f], p["bal_code"], kb,
+                        p["cap"])):
+                    out.append(t)
+                kfs.append(kf)
+        p = preps[0]
+        tree_chunk, fold_chunk = self._batch_bounds(
+            p["fit_kw"]["n_trees"], p["use_hist"], len(configs))
         args = [torch.stack(t) for t in (xs, ys, ws, kfs)]
         kw = dict(p["fit_kw"], tree_chunk=tree_chunk, fold_chunk=fold_chunk)
-        if p["use_hist"]:
-            forest = trees.fit_folds_hist(*args, edges=p["edges"], **kw,
-                                          **grow_kw)
-        else:
-            forest = trees.fit_folds(*args, **kw)
-        return confusion_by_fold(
-            p["y"], trees.predict_batch(forest, p["xp"]), test_mask,
-            self.project_ids, len(self.project_names)).cpu().numpy()
+        if not p["use_hist"]:
+            return trees.fit_folds(*args, **kw), preps
+        edges = p["edges"] if len(configs) == 1 else torch.stack(
+            [q["edges"] for q in preps]).repeat_interleave(self.n_folds, 0)
+        return trees.fit_folds_hist(*args, edges=edges, **kw,
+                                    **grow_kw), preps
 
-    def _run_member(self, config_keys, config_index, grow_kw):
-        """One plan member through the fold-batched fit (``grow_kw``: the
-        hist grower's extra keywords); its fold records, then its config
-        record, are journaled before it returns. Returns its result with
-        its own combined wall (T_TEST = 0.0)."""
-        t0 = time.time()
-        counts = self._fit_count_folds(config_keys, **grow_kw)
+    def _count_groups(self, configs, card, forest, preps):
+        """Each config's per-fold counts, int32 [n_folds, P, 3] on
+        ``card``, from ``_fit_groups``' forest: its folds' forests
+        predicted as one batch on its own preprocessed matrix."""
+        out = []
+        for c, (keys, p) in enumerate(zip(configs, preps)):
+            if len(configs) > 1:
+                part = slice(c * self.n_folds, (c + 1) * self.n_folds)
+                forest_c = trees.Forest(*(f[part] for f in forest[:-1]),
+                                        forest.max_depth)
+            else:
+                forest_c = forest
+            out.append(confusion_by_fold(
+                p["y"], trees.predict_batch(forest_c, p["xp"]),
+                card.masks[keys[0]][1], card.project_ids,
+                len(self.project_names)))
+        return out
+
+    def _fit_count_folds(self, config_keys, card=None, **grow_kw):
+        """The fold-batched fit of one config on ``card`` (default the
+        first): its folds grown as one tree batch (``_fit_groups``), the
+        forests predicted as one batch, and the per-fold counts read with
+        one host read. Returns the counts, int32 [n_folds, P, 3], each row
+        equal to the default path's count of that fold."""
+        card = card or self._cards[0]
+        forest, preps = self._fit_groups([config_keys], card, **grow_kw)
+        return self._count_groups([config_keys], card, forest,
+                                  preps)[0].cpu().numpy()
+
+    def _shards(self, n_slots, width):
+        """The contiguous shards of ``width`` slots, one a card (the JAX
+        package's ``P("config")``), of a batch's first ``n_slots`` slots:
+        [(card, [slot, ...]), ...], cards with no slot left out."""
+        return [(card, list(range(s * width, min((s + 1) * width, n_slots))))
+                for s, card in enumerate(self._cards) if s * width < n_slots]
+
+    def run_config_batch(self, config_batch):
+        """Run a batch of same-family configs across the device list and
+        return their results in ``run_config``'s schema. The batch is
+        padded to a multiple of the card count with its first config and
+        cut into contiguous shards, one a card; each card grows its
+        shard's configs x folds as tree batches on the group axis
+        (``_fit_groups``: one BFS step or one level serves every config of
+        the shard), under ``TREES_IN_FLIGHT`` over configs x folds x trees
+        when no dispatch bound is given. A padded slot repeats the first
+        config, which the card holding it runs again: wasted work the real
+        configs bear.
+
+        Staged (default): a ``scores.fit_batch`` span over the fit on
+        every card, then a ``scores.score_batch`` span over the counts,
+        [B, P, 3] to the host, or with a journal [B, folds, P, 3], every
+        real config's folds journaled and then its config record, totals
+        the int32 fold sum. Fused: one ``scores.config_batch`` span and one
+        combined wall in T_TRAIN, T_TEST = 0.0, and only the config
+        records journaled. The walls are attributed evenly over the real
+        configs, which join ``amortized_configs``: per-config times of a
+        shared batch are not separable. Counts equal ``run_config``'s bit
+        for bit."""
+        config_batch = [tuple(k) for k in config_batch]
+        fs_name, model_name = config_batch[0][1], config_batch[0][4]
+        if any((k[1], k[4]) != (fs_name, model_name) for k in config_batch):
+            raise ValueError("run_config_batch takes one family's configs")
+        n_cards = len(self._cards)
+        padded = config_batch + [config_batch[0]] * (
+            -len(config_batch) % n_cards)
+        shards = [(card, [padded[i] for i in slots]) for card, slots in
+                  self._shards(len(padded), len(padded) // n_cards)]
+        n_real = len(config_batch)
+        family = (fs_name, model_name)
+        span_kw = dict(key=(*family, "fused" if self.fused else "staged",
+                            len(padded)), batch=n_real,
+                       configs=["/".join(k) for k in config_batch])
+        journal = self.journal
+
+        def counts_of(card, shard, fitted, per_fold):
+            counts = torch.stack(self._count_groups(shard, card, *fitted))
+            if not per_fold:
+                counts = counts.sum(1, dtype=torch.int32)
+            return counts.cpu().numpy()
+
+        if self.fused:
+            with obs.span("scores.config_batch", counts=launch_counts,
+                          mode="fused", stage="fused", **span_kw):
+                t0 = time.time()
+                got = _on_cards([(card, [
+                    lambda card=card, shard=shard: counts_of(
+                        card, shard, self._fit_groups(shard, card), False)])
+                    for card, shard in shards])
+                wall = (time.time() - t0) / n_real
+            counts = np.concatenate([r[0] for r in got])
+            out = [self._result(counts[i], wall / self.n_folds, 0.0)
+                   for i in range(n_real)]
+            self.fused_configs.update(config_batch)
+        else:
+            def fit(card, shard):
+                fitted = self._fit_groups(shard, card)
+                if card.device.type == "cuda":  # the batch's train clock
+                    torch.cuda.synchronize(card.device)
+                return fitted
+
+            with obs.span("scores.fit_batch", counts=launch_counts,
+                          mode="staged", stage="fit", **span_kw):
+                t0 = time.time()
+                fitted = _on_cards([(card, [
+                    lambda card=card, shard=shard: fit(card, shard)])
+                    for card, shard in shards])
+                t_train = (time.time() - t0) / n_real
+            with obs.span("scores.score_batch", mode="staged",
+                          stage="predict", **span_kw):
+                t0 = time.time()
+                got = _on_cards([(card, [
+                    lambda card=card, shard=shard, f=f[0]: counts_of(
+                        card, shard, f, journal is not None)])
+                    for (card, shard), f in zip(shards, fitted)])
+                del fitted
+                t_test = (time.time() - t0) / n_real
+            counts = np.concatenate([r[0] for r in got])
+            by_fold = counts if journal is not None else None
+            if by_fold is not None:
+                counts = by_fold.sum(1, dtype=np.int32)
+            out = [self._result(counts[i], t_train / self.n_folds,
+                                t_test / self.n_folds)
+                   for i in range(n_real)]
+        self._count_done(n_real, self._spec(model_name).n_trees)
+        self.amortized_configs.update(config_batch)
+        if journal is not None:
+            for i, keys in enumerate(config_batch):
+                if not self.fused:
+                    self._journal_folds(keys, by_fold[i])
+                journal.record_config(keys, out[i])
+        return out
+
+    def _journal_folds(self, config_keys, counts):
+        """Journal a config's fold records, counts [n_folds, P, 3]."""
+        key_bytes = _key_bytes(self._fold_keys(config_keys))
+        index = self._index[config_keys]
+        for f in range(self.n_folds):
+            self.journal.record_fold(config_keys, f, key_bytes[f],
+                                     counts[f], config_index=index)
+
+    def _member_result(self, config_keys, counts, wall):
+        """A plan member's result with its own combined wall (T_TEST =
+        0.0); its fold records, then its config record, are journaled."""
         result = self._result(counts.sum(0, dtype=np.int32),
-                              (time.time() - t0) / self.n_folds, 0.0)
+                              wall / self.n_folds, 0.0)
         if self.journal is not None:
-            key_bytes = _key_bytes(self._fold_keys(config_keys))
-            for f in range(self.n_folds):
-                self.journal.record_fold(config_keys, f, key_bytes[f],
-                                         counts[f], config_index=config_index)
+            self._journal_folds(config_keys, counts)
             self.journal.record_config(config_keys, result)
         return result
+
+    def _run_member(self, config_keys, grow_kw):
+        """One plan member through the fold-batched fit on the first card
+        (``grow_kw``: the hist grower's extra keywords), journaled before
+        it returns (``_member_result``)."""
+        t0 = time.time()
+        counts = self._fit_count_folds(config_keys, **grow_kw)
+        return self._member_result(config_keys, counts, time.time() - t0)
 
     def plan_grow_kw(self, plan):
         """The hist grower's extra keywords for ``plan``: the performance
@@ -438,18 +712,21 @@ class SweepEngine:
         return perfdb.tuned_fit_overrides(self.device.type, plan.shape,
                                           model=model_name)
 
-    def run_plan(self, plan, guard, grow_kw):
-        """Run a ``planner.Plan``'s members one after another (the port's
-        analogue of the JAX package's ``lax.map`` over a plan), each
-        through the fold-batched fit, so each keeps its own step count.
-        Each member is a guarded call of its own under ``guard`` (a
-        ``DispatchGuard``): a fault, a retry or an overrun touches that
-        member alone, the injection plan addresses it by its config
-        index, and a member the guard abandons is quarantined and its
-        result None. Returns the members' results in ``run_config``'s
-        schema. The plan is one ``scores.plan`` span (and, with
-        ``F16_XPROF``, one profiler capture a model).
+    def run_plan(self, plan, guard, grow_kw, n_cards=None):
+        """Run a ``planner.Plan``'s members, each through the fold-batched
+        fit, so each keeps its own step count: on one card one after
+        another (the port's analogue of the JAX package's ``lax.map``
+        over a plan), else split over the cards (``_run_plan_cards``;
+        ``n_cards=1`` holds the plan to the first card, as ``run_grid``
+        does under device-fault injection). Returns the members' results
+        in ``run_config``'s schema, None for a quarantined member. The
+        plan is one ``scores.plan`` span (and, with ``F16_XPROF``, one
+        profiler capture a model).
 
+        On one card each member is a guarded call of its own under
+        ``guard`` (a ``DispatchGuard``): a fault, a retry or an overrun
+        touches that member alone, the injection plan addresses it by its
+        config index, and a member the guard abandons is quarantined.
         Each member's folds are journaled, then its config record, before
         the next member runs. The journal holds a member's own wall; the
         results hold the plan's clocks amortized over the members that
@@ -463,26 +740,97 @@ class SweepEngine:
         pinned by the operator) the grower keeps its own
         (``trees.default_node_batch``). The exact grower takes none."""
         fs_name, model_name = plan.family
+        n_cards = n_cards or len(self._cards)
         with obs.span("scores.plan", key=(fs_name, model_name, plan.batch),
                       counts=launch_counts, stage="plan",
                       batch=len(plan.configs), pad=plan.pad,
                       configs=["/".join(k) for k in plan.configs]):
             with obs.xprof_trace(f"plan-{model_name.replace(' ', '_')}",
                                  self.device):
-                own = [self._run_guarded(
-                    guard, keys,
-                    lambda keys=keys, index=index: self._run_member(
-                        keys, index, grow_kw))
-                    for keys, index in zip(plan.configs, plan.indices)]
-        ran = [(k, r) for k, r in zip(plan.configs, own) if r is not None]
+                if n_cards > 1:
+                    own, ran_plan, wall = self._run_plan_cards(
+                        plan, guard, grow_kw)
+                else:
+                    own = [self._run_guarded(
+                        guard, keys, lambda keys=keys: self._run_member(
+                            keys, grow_kw))
+                        for keys in plan.configs]
+                    ran_plan = [r is not None for r in own]
+                    wall = None
+        ran = [(k, r) for k, r, p in zip(plan.configs, own, ran_plan)
+               if p and r is not None]
         self._count_done(len(ran), self._spec(model_name).n_trees)
         if not ran:
             return own
-        wall = sum(r[0] for _, r in ran) / len(ran)
+        if wall is None:
+            wall = sum(r[0] for _, r in ran) / len(ran)
         self.fused_configs.update(k for k, _ in ran)
         if len(plan.configs) > 1:
             self.amortized_configs.update(k for k, _ in ran)
-        return [None if r is None else [wall, 0.0, *r[2:]] for r in own]
+        return [[wall, 0.0, *r[2:]] if p else r
+                for r, p in zip(own, ran_plan)]
+
+    def _run_plan_cards(self, plan, guard, grow_kw):
+        """``plan``'s members split over the cards: card s runs the real
+        members of the padded batch's s-th contiguous shard one after
+        another (pads never run), so one member is in flight on a card.
+        The whole plan is one guarded call, as the JAX
+        package's plan dispatch is; a member that finished in an earlier
+        attempt of it is not run again. The calling thread journals each
+        member (``_member_result``) as soon as every member before it
+        has, so the journal keeps canonical member order and a kill
+        leaves a prefix. A plan the guard abandons is salvaged config by
+        config on ``run_config``'s path, counted in ``retries``. Returns
+        (results, whether each ran on the plan path, the plan's wall a
+        fold amortized over its members)."""
+        members = list(plan.configs)
+        done = {}                   # member -> (counts, wall), all attempts
+        journaled = []
+
+        def member(card, m):
+            t0 = time.time()
+            counts = self._fit_count_folds(members[m], card=card, **grow_kw)
+            return m, counts, time.time() - t0
+
+        def landed(job, i, res):
+            m, counts, wall = res
+            done[m] = (counts, wall)
+            while len(journaled) in done and len(journaled) < len(members):
+                k = len(journaled)
+                journaled.append(self._member_result(members[k],
+                                                     *done[k]))
+
+        def thunk():
+            jobs = []
+            for card, slots in self._shards(
+                    len(members), plan.batch // len(self._cards)):
+                todo = [m for m in slots if m not in done]
+                if todo:
+                    jobs.append((card, [
+                        lambda card=card, m=m: member(card, m)
+                        for m in todo]))
+            _on_cards(jobs, landed)
+            return list(journaled)
+
+        t0 = time.time()
+        try:
+            own = guard.call(thunk, label=f"plan/{'/'.join(plan.family)}")
+        except rguard.DispatchAbandoned as e:
+            self._salvaged(e, len(members) - len(journaled))
+            own = journaled + [self._run_guarded(
+                guard, keys, lambda keys=keys: self.run_config(keys))
+                for keys in members[len(journaled):]]
+            ran = [i < len(journaled) for i in range(len(members))]
+            return own, ran, ((time.time() - t0) / max(1, len(journaled))
+                              / self.n_folds)
+        wall = (time.time() - t0) / len(members) / self.n_folds
+        return own, [True] * len(members), wall
+
+    def _salvaged(self, e, n_configs):
+        """Record a batch or a plan that the guard abandoned, salvaged
+        config by config (the JAX package's behaviour), in ``retries``."""
+        self.retries.append(dict(e.attempts[-1], label=e.label,
+                                 salvaged=n_configs))
 
     def _run_guarded(self, guard, keys, thunk):
         """``thunk`` (one config's run) under the guard; None when the
@@ -498,7 +846,8 @@ class SweepEngine:
                       config="/".join(keys))
             return None
 
-    def run_grid(self, config_list=None, ledger=None, progress=None):
+    def run_grid(self, config_list=None, ledger=None, progress=None,
+                 batch_size=None):
         """Run many configs (default: the whole grid); returns
         {config_keys: result}. Configs already in ``ledger`` are skipped;
         ``progress(i, n, keys, scores)`` is called after each config.
@@ -508,19 +857,34 @@ class SweepEngine:
         fails deterministically) is left out of the result and recorded
         in ``self.quarantined``; the sweep goes on. The injection plan
         addresses configs by their index in the canonical grid order.
-        With ``planner_mode`` configs with journaled folds resume first,
-        on ``run_config``'s fold-granular path; the rest run as plans
-        (one a family, ``planner.plan_grid``'s order, ``run_plan``), each
-        member guarded as a config of its own. Between the two, the
+
+        ``batch_size`` is the width of a config batch (default: the card
+        count). Above 1, configs journaled in part resume first on
+        ``run_config``'s fold-granular path, then the rest run in batches
+        of one family (``iter_family_batches``), each batch one guarded
+        call (``run_config_batch``); a batch of one config takes the
+        per-config path, and a batch the guard abandons is salvaged config
+        by config. An injection plan with device faults forces width 1
+        (and plans onto the first card), so a fault stays at one config.
+        With ``planner_mode`` the journaled configs resume first, then the
+        rest run as plans (one a family, ``planner.plan_grid``'s order,
+        padded to the card count, ``run_plan``). Between the two, the
         budget pre-flight (``_preflight_plan_budget``) may refuse every
         plan with ``PlanOverBudget`` before the first one dispatches."""
         scores = dict(ledger or {})
         if config_list is None:
             config_list = cfg.iter_config_keys()
         todo = [tuple(k) for k in config_list if tuple(k) not in scores]
-        guard = rguard.default_guard(plan=rinject.plan_from_env(),
-                                     device=self.device)
+        inject = rinject.plan_from_env()
+        guard = rguard.default_guard(
+            plan=inject,
+            device=self.devices if len(self.devices) > 1 else self.device)
         self.retries = guard.retries
+        device_faults = inject is not None and any(
+            fc not in rinject.PROCESS_CLASSES for _, _, fc in inject.entries)
+        n_cards = 1 if device_faults else len(self._cards)
+        width = 1 if device_faults else (
+            len(self._cards) if batch_size is None else batch_size)
         done = []
 
         def put(keys, res):
@@ -530,22 +894,41 @@ class SweepEngine:
             if progress is not None:
                 progress(len(done), len(todo), keys, scores)
 
-        single = [k for k in todo if not self.planner_mode or (
+        def one(keys):
+            return self._run_guarded(guard, keys,
+                                     lambda: self.run_config(keys))
+
+        batched = self.planner_mode or width > 1
+        single = [k for k in todo if not batched or (
             self.journal is not None and self.journal.partial_folds(k))]
         for keys in single:
-            put(keys, self._run_guarded(
-                guard, keys, lambda keys=keys: self.run_config(keys)))
+            put(keys, one(keys))
+        resumed = set(single)
+        rest = [k for k in todo if k not in resumed]
+        if not self.planner_mode:
+            for batch in iter_family_batches(rest, max(1, width)):
+                if len(batch) == 1:
+                    results = [one(batch[0])]
+                else:
+                    try:
+                        results = guard.call(
+                            lambda batch=batch: self.run_config_batch(batch),
+                            label=f"batch/{batch[0][1]}/{batch[0][4]}")
+                    except rguard.DispatchAbandoned as e:
+                        self._salvaged(e, len(batch))
+                        results = [one(k) for k in batch]
+                for keys, res in zip(batch, results):
+                    put(keys, res)
+            return scores
         # The performance database's recorded plan padding (``perfdb.
         # plan_lookup``; None without a database): a pad only widens the
-        # Plan record, since members run one after another and pads never
-        # run.
+        # Plan record, since pads never run.
         plans = planner.plan_grid(
-            [k for k in todo if k not in single], devices=1,
-            n=self.features.shape[0], n_folds=self.n_folds,
-            tree_overrides=self.tree_overrides,
+            rest, devices=n_cards, n=self.features.shape[0],
+            n_folds=self.n_folds, tree_overrides=self.tree_overrides,
             perf_lookup=perfdb.plan_lookup(self.device.type))
         grow_kws = [self.plan_grow_kw(pl) for pl in plans]
-        if self.planner_mode and self.preflight:
+        if self.preflight:
             _preflight_plan_budget(
                 plans, n_projects=len(self.project_names),
                 max_depth=self.max_depth, grower=self.grower,
@@ -553,6 +936,22 @@ class SweepEngine:
                 dispatch_trees=self.dispatch_trees,
                 dispatch_folds=self.dispatch_folds)
         for pl, kw in zip(plans, grow_kws):
-            for keys, res in zip(pl.configs, self.run_plan(pl, guard, kw)):
-                put(keys, res)
+            # n_cards only when device faults hold the plans to one card
+            res = self.run_plan(pl, guard, kw) if n_cards == len(
+                self._cards) else self.run_plan(pl, guard, kw, n_cards)
+            for keys, r in zip(pl.configs, res):
+                put(keys, r)
         return scores
+
+
+def iter_family_batches(configs, batch_size):
+    """Group configs by family (feature set, model) and yield them in
+    batches of at most ``batch_size``, families in the order of their
+    first config (the JAX package's, which its bench's batch mode
+    shares)."""
+    families = {}
+    for keys in configs:
+        families.setdefault((keys[1], keys[4]), []).append(keys)
+    for fam_configs in families.values():
+        for lo in range(0, len(fam_configs), batch_size):
+            yield fam_configs[lo:lo + batch_size]

@@ -29,7 +29,7 @@ from flake16_framework_tpu_torch.constants import (
     LOPO_SCORES_FILE, SCORES_FILE, SHAP_FILE, TESTS_FILE,
 )
 from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
-from flake16_framework_tpu_torch.device import resolve
+from flake16_framework_tpu_torch.device import default_devices, resolve
 from flake16_framework_tpu_torch.kernels.build import launch_counts
 from flake16_framework_tpu_torch.ops import trees, treeshap
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
@@ -139,14 +139,20 @@ def _write_timing_meta(out_file, amortized_configs, fused_configs):
 def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                  max_depth=48, tree_overrides=None, configs=None,
                  progress_out=sys.stdout, cv="stratified", device=None,
-                 fused=False, planner=False, dispatch_trees=None,
-                 dispatch_folds=None, profile_dir=None):
+                 devices=None, fused=False, planner=False,
+                 dispatch_trees=None, dispatch_folds=None, profile_dir=None):
     """Run the sweep over ``configs`` (key tuples, as the JAX package's
     ``write_scores`` takes them; default the whole grid) and pickle the
     scores. ``cv="lopo"`` runs leave-one-project-out CV; the default
     ``out_file`` follows the scheme (``scores.pkl`` or
     ``scores-lopo.pkl``), so a LOPO run never resumes from a stratified
-    ledger. Runs on ``cuda`` unless ``device`` says otherwise.
+    ledger. Runs on ``cuda`` unless ``device`` says otherwise. With no
+    ``device`` and more than one CUDA device visible, or with a
+    ``devices`` list, the sweep batches configs of a family across the
+    cards (``SweepEngine.run_config_batch``, plans split over them), as
+    the JAX package does on more than one device; ``device=`` keeps one
+    card. Batched configs are stamped ``batch_amortized`` in the timing
+    meta.
 
     ``planner=True`` runs the configs as family plans and ``fused=True``
     each config through the fold-batched fit (``SweepEngine``): the same
@@ -171,14 +177,19 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     on disk."""
     if out_file is None:
         out_file = SCORES_FILE if cv == "stratified" else LOPO_SCORES_FILE
-    device = resolve(device)
+    if devices is None and device is None and \
+            torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        devices = default_devices()
+    if devices is None:
+        device = resolve(device)          # no CUDA raises before the load
     feats, labels, projects, names, pids = tests_to_arrays(
         load_tests(tests_file))
     engine = SweepEngine(feats, labels, projects, names, pids,
                          max_depth=max_depth, tree_overrides=tree_overrides,
-                         cv=cv, device=device, fused=fused,
+                         cv=cv, device=device, devices=devices, fused=fused,
                          planner_mode=planner, dispatch_trees=dispatch_trees,
                          dispatch_folds=dispatch_folds)
+    device = engine.device
     ledger = _load_ledger(out_file)
     fp = _journal_fingerprint(engine, cv=cv, max_depth=max_depth,
                               tree_overrides=tree_overrides)
@@ -202,7 +213,8 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
 
     obs.manifest_update(verb="scores", cv=cv, out_file=str(out_file),
                         fused=fused, planner=planner)
-    obs.record_device_manifest(device)
+    obs.record_device_manifest(device, devices=None if devices is None
+                               else engine.devices)
     try:
         with obs.profiler_trace(profile_dir, device):
             with obs.span("scores.run_grid", cv=cv):
@@ -213,6 +225,11 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
         # lock are released for the next run.
         jr.close(remove=False)
         raise
+    for rec in engine.retries:
+        if "salvaged" in rec:
+            progress_out.write(
+                f"SALVAGED {rec['label']} [{rec['fault_class']}]: "
+                f"{rec['salvaged']} config(s) run one by one\n")
     _dump(scores, out_file)
     _write_timing_meta(out_file, engine.amortized_configs,
                        engine.fused_configs)

@@ -3,7 +3,8 @@ copy of the JAX package's, for CUDA). A guarded call:
 
 1. consults the injection plan (``F16_FAULT_INJECT``, inject.py) so every
    path below runs deterministically on the CPU;
-2. runs the thunk, then synchronises its CUDA device: a CUDA error
+2. runs the thunk, then synchronises its CUDA device (every card of a
+   device list, for a config batch split across cards): a CUDA error
    surfaces at the next synchronisation, not at the launch that caused it,
    and it must land inside the guard of the config that caused it, not in
    the next one. An optional watchdog deadline (``F16_FAULT_ENVELOPE_S``,
@@ -101,8 +102,8 @@ def _cuda(device):
 class DispatchGuard:
     """See module docstring. ``sleep``/``rng`` are injectable so tests
     exercise the backoff schedule without real sleeps; ``device`` is the
-    torch device the thunk drives: a CUDA device is synchronised inside
-    the guard."""
+    torch device the thunk drives, or a list of them: each CUDA device is
+    synchronised inside the guard."""
 
     def __init__(self, policy=None, plan=None, *, sleep=None, rng=None,
                  envelope_s=None, device=None):
@@ -151,7 +152,7 @@ class DispatchGuard:
                               attempt=attempt, error=rec["error"], **lbl)
                     raise DispatchAbandoned(label, fc, attempts, e) from e
                 if fc == faults.OOM:
-                    torch = _cuda(self.device)
+                    torch = _cuda(self._devices()[0])
                     if torch is not None:
                         torch.cuda.empty_cache()
                 delay = self.policy.delay_s(attempt, self._rng)
@@ -168,10 +169,16 @@ class DispatchGuard:
     def _orphan_running(self):
         return self._orphan is not None and self._orphan.is_alive()
 
+    def _devices(self):
+        return self.device if isinstance(self.device, (list, tuple)) \
+            else [self.device]
+
     def _finish(self, out):
-        torch = _cuda(self.device)
-        if torch is not None:
-            torch.cuda.synchronize(self.device)
+        for device in self._devices():
+            torch = _cuda(device)
+            if torch is not None:
+                # One synchronize a card of the call, each its own.
+                torch.cuda.synchronize(device)  # f16lint: disable=J402
         return out
 
     def _dispatch(self, thunk):
@@ -182,12 +189,13 @@ class DispatchGuard:
         # (a launched kernel cannot be cancelled); ``call`` runs nothing
         # while it lives.
         box = {}
-        torch = _cuda(self.device)
+        device = self._devices()[0]
+        torch = _cuda(device)
         if torch is not None:
             # A new thread starts on the current device, not on the
             # caller's: the worker sets it by index (plain "cuda" is the
             # caller's current device).
-            index = torch.device(self.device).index
+            index = torch.device(device).index
             if index is None:
                 index = torch.cuda.current_device()
 
