@@ -1,5 +1,6 @@
 """Chip smoke of the PyTorch/CUDA port (flake16_framework_tpu_torch) on one
-NVIDIA H100: builds the CUDA kernels from ``csrc/``, holds each against its
+NVIDIA H100: builds the CUDA kernels from ``csrc/`` (and the collation's
+host C++, ``native/collate_fast.cc``, with g++), holds each against its
 plain PyTorch version at the main path's shapes, drives the main paths at
 full width (N = 4000 tests over 26 projects, 16 features, 100 trees,
 depth 48) and checks what comes out: the ``scores`` verb (10 folds, 64
@@ -170,12 +171,28 @@ Decision Tree config at full width (the card's scores equal to the
 CPU's), ``write_shap`` on the card and ``write_figures`` on the result.
 ``collate_scale`` writes the plugins' artifacts of the synthetic dataset
 at the study's run counts (2,500 + 2,500 + 1 runs a project; 400 tests
-over 8 projects: 40,024 files, 2.1 M outcome lines) with the
-generator of ``tests/torch_collect_cases.py``, runs ``python -m
+over 4 projects: 20,012 files, 2.1 M outcome lines) with the
+generator of ``tests/torch_collect_cases.py``, checks that the native
+collation module (``native/collate_fast.cc``) builds and loads here and
+equals the plain Python bodies on the phase's own coverage databases,
+times the two on them in turns (plain, native, native, plain: the numbits
+decode and the coverage feature sums), runs ``python -m
 flake16_framework_tpu_torch tests`` on them in a child process (its
 output must equal the generator's expected ``tests.json``; wall and
 lines/s printed), removes the data and runs
 ``write_scores`` on the card for ``MAIN_CONFIGS`` on the collated file.
+
+``multiprocess_path`` runs the config batch across processes (the JAX
+package's multi-host path) through the dry-run tool
+(``tools/multihost_dryrun.py``) at full width: four Flake16 Extra Trees
+configs without PCA (N = 4000 over 26 projects, 100 trees, 10 folds,
+depth 48) as two ``gloo`` ranks of one card each, which share the one
+H100 (``shared_card``), against the same batch in this process on the
+card. The counts must be bitwise equal, K1 must launch in both ranks
+and here, and each config's false negatives and true positives must sum
+to the dataset's positives; each rank's wall, gather wall, K1 launches
+and peak allocated memory, the one process's wall and the phase's wall
+are printed.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and exits non-zero without one. The last line of its output is
@@ -1367,7 +1384,8 @@ def run_config_batch_path(tmp, tj):
     edges), each after the same configs through ``run_config``: counts
     bitwise equal, walls, launches and peak memory both ways. The DT
     batch runs twice more without the journal, timed and under the
-    profiler, for its device idle share.
+    profiler, for its device idle share and launches, and the first DT
+    config once more through ``run_config`` under the profiler.
     One BFS step of the RF batch (the fifth K1 launch: 1,000 trees over
     20 groups) is held bitwise against ``cum_hists_plain``. With more
     than one card visible the DT batch also runs split across all of
@@ -1432,8 +1450,10 @@ def run_config_batch_path(tmp, tj):
                         host=False)
     busy_ms = sum(k[0] for k in kernels)
     part("dt_batch_bare_and_profiled")
+    # The first config alone through run_config, profiled: its launches
+    # against the batch's (the four configs' take four times as long).
     one_launches = sum(k[2] for k in _profiled(
-        lambda: one.run_grid(list(BATCH_DT_CONFIGS)), host=False))
+        lambda: one.run_config(BATCH_DT_CONFIGS[0]), host=False))
     part("dt_run_config_profiled")
     rep["dt"] = {
         "configs": ["/".join(k) for k in BATCH_DT_CONFIGS],
@@ -1441,7 +1461,7 @@ def run_config_batch_path(tmp, tj):
         "journal_appends": n_appends, "journal_append_wall_s": append_s,
         "batch_bare_wall_s": bare_wall,
         "batch_launches": sum(k[2] for k in kernels),
-        "per_config_launches": one_launches,
+        "first_run_config_launches": one_launches,
         "batch_device_busy_ms": busy_ms,
         "batch_device_idle_share": 1.0 - busy_ms / 1e3 / bare_wall,
         "batch_peak_allocated_gb": dt_peak,
@@ -1512,7 +1532,8 @@ def print_config_batch(cb, launches, smi):
           f"{dt['journal_append_wall_s']:.3f} s) against run_config "
           f"{dt['per_config_wall_s']:.3f} s, bitwise equal; bare batch "
           f"{dt['batch_bare_wall_s']:.3f} s, {dt['batch_launches']} "
-          f"launches against run_config's {dt['per_config_launches']}, "
+          f"launches for four configs against run_config's "
+          f"{dt['first_run_config_launches']} for the first, "
           f"busy {dt['batch_device_busy_ms']:.1f} ms, idle "
           f"{dt['batch_device_idle_share']:.1%}; peak allocated "
           f"{dt['batch_peak_allocated_gb']:.3f} GB against "
@@ -1536,6 +1557,72 @@ def print_config_batch(cb, launches, smi):
         print("config_batch: 1 card visible; the split across cards is "
               "held on the CPU only (tests/test_torch_configbatch.py)",
               flush=True)
+
+
+def run_multiprocess_path(tmp):
+    """The config batch across processes at full width, through the
+    dry-run tool as ``python -m flake16_framework_tpu_torch.tools.
+    multihost_dryrun --devices-per-proc 1 --batch 4`` runs it
+    (``multihost_dryrun.run``): two ``gloo`` ranks of one card each,
+    sharing the card when one is visible, then the same batch in this
+    process. The kernels' counts are set to 0 just before and read just
+    after; the ranks' K1 launches come from their own counts. Returns
+    (the path's launches, the tool's line with the phase's wall)."""
+    from flake16_framework_tpu_torch import config as cfg
+    from flake16_framework_tpu_torch.tools import multihost_dryrun as mh
+
+    args = mh.parse_args([
+        "--devices-per-proc", "1", "--n", str(N_TESTS),
+        "--projects", str(N_PROJECTS), "--trees", "100", "--depth", "48",
+        "--batch", "4", "--timeout", "600",
+        "--out", os.path.join(tmp, "multihost")])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the ranks' room on a shared card
+    _reset_counts()
+    t0 = time.time()
+    line = mh.run(args)
+    line["phase_s"] = time.time() - t0
+    here = _read_counts()
+    failed = {k: line.get(k) for k in ("rank_rcs", "rank_errors")}
+    _require(line["multihost_dryrun_ok"], f"multiprocess_path: "
+             f"{json.dumps(failed)}, or the ranks' counts differ from one "
+             f"process's")
+    _require(line["shared_card"] == (torch.cuda.device_count() < 2),
+             f"shared_card {line['shared_card']}")
+    _require(all(n > 0 for n in line["rank_k1_launches"]),
+             f"a rank launched no K1: {line['rank_k1_launches']}")
+    _require(here["hist_cumsum"] == line["single_k1_launches"] > 0,
+             f"one process's K1 launches {here}")
+    _, labels, *_ = mh.dataset(N_TESTS, N_PROJECTS)
+    for keys, counts in zip(mh.batch_configs(4), line["counts"]):
+        counts = np.asarray(counts)
+        _require(counts.shape == (N_PROJECTS, 3) and counts.min() >= 0,
+                 f"counts of {keys}: shape {counts.shape}")
+        positives = int((labels == cfg.FLAKY_TYPES[keys[0]]).sum())
+        _require(int(counts[:, 1:].sum()) == positives,
+                 f"{'/'.join(keys)}: FN + TP {counts[:, 1:].sum()} != "
+                 f"{positives} positives")
+    launches = {"hist_cumsum": here["hist_cumsum"] + sum(
+        line["rank_k1_launches"]), "treeshap_unit": here["treeshap_unit"]}
+    return launches, line
+
+
+def print_multiprocess(mp, launches, smi):
+    gb = [b / 1e9 for b in mp["rank_peak_allocated_bytes"]]
+    for r in range(mp["procs"]):
+        print(f"multiprocess_path rank {r} ({smi}): {mp['rank_devices'][r]}"
+              f", wall {mp['rank_wall_s'][r]:.3f} s (gather "
+              f"{mp['rank_gather_s'][r]:.3f} s), K1 "
+              f"{mp['rank_k1_launches'][r]} launches, peak allocated "
+              f"{gb[r]:.2f} GB", flush=True)
+    print(f"multiprocess_path ({smi}): {mp['batch']} Extra Trees configs "
+          f"over {mp['procs']} ranks x {mp['devices_per_proc']} card "
+          f"(shared_card {mp['shared_card']}), ranks {mp['ranks_s']:.2f} s "
+          f"from spawn to exit; one process {mp['single_wall_s']:.3f} s, "
+          f"K1 {mp['single_k1_launches']} launches, peak allocated "
+          f"{mp['single_peak_allocated_bytes'] / 1e9:.2f} GB; counts "
+          f"bitwise equal; phase {mp['phase_s']:.2f} s; launches "
+          f"{launches}", flush=True)
 
 
 def profile_member(tests_file, config, wall_s):
@@ -2464,14 +2551,15 @@ CHAIN_CONFIGS = (
     ("NOD", "Flake16", "None", "None", "Decision Tree"),
 )
 CHAIN_RUNS = {"baseline": 4, "shuffle": 2, "testinspect": 1}
-# The collate_scale phase's dataset: 400 tests over 8 projects, 50 a
+# The collate_scale phase's dataset: 400 tests over 4 projects, 100 a
 # project (11 OD and 30 NOD tests, so every class fills the 10 folds). The
 # phase writes and reads one file a run and project and one outcome line
 # a run and test; it took 214.8 s on the card at N_TESTS over N_PROJECTS,
-# 139.7 s at 2,000 tests (130,078 files, 10.4 M lines) and 50.3-108.7 s
-# at 600 over 13, too much of the script's time limit. Runs per mode are
-# never cut: the verb labels only complete tests, at the full N_RUNS.
-COLLATE_TESTS, COLLATE_PROJECTS = 400, 8
+# 139.7 s at 2,000 tests (130,078 files, 10.4 M lines), 50.3-108.7 s at
+# 600 over 13 and 46.8-59.5 s at 400 over 8 (40,024 files), too much of
+# the script's time limit. Runs per mode are never cut: the verb labels
+# only complete tests, at the full N_RUNS.
+COLLATE_TESTS, COLLATE_PROJECTS = 400, 4
 
 
 def _collect_cases():
@@ -2578,6 +2666,58 @@ def run_collect_chain(tmp):
     return launches, out
 
 
+def time_native_collation(data):
+    """The native collation module on the card's machine, on the phase's
+    own coverage databases and static pickles under ``data``: loaded
+    (raising if it cannot be), equal to the plain Python bodies on
+    every numbits blob and every test's coverage features, and both timed
+    in turns (plain, native, native, plain) over all of them."""
+    import sqlite3
+
+    from flake16_framework_tpu_torch import native
+    from flake16_framework_tpu_torch.constants import SUBJECTS_DIR
+    from flake16_framework_tpu_torch.runner import collate
+
+    mod = native.load()
+    out = {"module": os.path.basename(mod.__file__)}
+    blobs, projects = [], {}
+    for path, proj, mode, _, ext in collate.scan_data_dir(data):
+        if mode != "testinspect" or ext == "tsv":
+            continue
+        project = projects.setdefault(proj, collate.ProjectData())
+        if ext == "sqlite3":
+            with contextlib.closing(sqlite3.connect(path)) as con:
+                blobs += [b for (b,) in con.execute(
+                    "SELECT numbits FROM line_bits")]
+                collate.ingest_coverage_db(con, proj, project, SUBJECTS_DIR)
+        else:
+            with open(path, "rb") as fd:
+                collate.ingest_static_pickle(fd, project)
+    cases = [(rec.coverage, p.test_files, p.churn)
+             for p in projects.values() for rec in p.tests.values()
+             if rec.coverage]
+    fns = {"decode": (collate._numbits_to_lines_py, mod.numbits_to_lines),
+           "sums": (collate._coverage_features_py, mod.coverage_features)}
+    args = {"decode": [(b,) for b in blobs], "sums": cases}
+    for what, (plain, fast) in fns.items():
+        got = [fast(*a) for a in args[what]]
+        _require(got == [plain(*a) for a in args[what]],
+                 f"native {what} != plain on the phase's data")
+        if what == "decode":
+            out["lines"] = sum(len(lines) for lines in got)
+    out.update(blobs=len(blobs), tests=len(cases))
+    for what, (plain, fast) in fns.items():
+        walls = {"plain": [], "native": []}
+        for name, fn in (("plain", plain), ("native", fast),
+                         ("native", fast), ("plain", plain)):
+            t0 = time.perf_counter()
+            for a in args[what]:
+                fn(*a)
+            walls[name].append(time.perf_counter() - t0)
+        out[f"{what}_s"] = walls
+    return out
+
+
 def run_collate_scale(tmp):
     """The ``tests`` verb at the study's run counts: the generator of
     ``tests/torch_collect_cases.py`` writes the plugins' artifacts of the
@@ -2608,6 +2748,7 @@ def run_collate_scale(tmp):
     out.update(stats)
     with os.scandir(data) as it:
         out["bytes"] = sum(e.stat().st_size for e in it)
+    out["native"] = time_native_collation(data)
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
     env.pop("F16_TELEMETRY", None)
@@ -2655,6 +2796,15 @@ def print_collection(chain, scale, smi):
           f"{scale['verb_s']:.2f} s ({scale['lines_per_s']:.0f} lines/s); "
           f"{scale['tests']} tests in {scale['projects']} projects == "
           f"expected", flush=True)
+    nat = scale["native"]
+    print(f"collate_scale native collation ({smi}): {nat['module']}; "
+          f"== plain on {nat['blobs']} "
+          f"numbits blobs ({nat['lines']} lines) and {nat['tests']} tests' "
+          f"coverage features; decode plain "
+          f"{nat['decode_s']['plain']} s, native "
+          f"{nat['decode_s']['native']} s; feature sums plain "
+          f"{nat['sums_s']['plain']} s, native {nat['sums_s']['native']} s "
+          f"(turns plain, native, native, plain)", flush=True)
     for c in scale["configs"]:
         print(f"collate_scale {c['config']}: wall {c['wall_s']:.2f} s, "
               f"hist_cumsum launches {c['hist_cumsum_launches']}, F1 "
@@ -3860,6 +4010,17 @@ def main():
           flush=True)
     for name in names:
         print(f"nvcc {name}: {logs[name].strip()}", flush=True)
+    # The collation's native host module (g++, CPython C API), built here
+    # before any phase collates.
+    from flake16_framework_tpu_torch import native
+
+    t0 = time.time()
+    native_built = not native._so_path("collate_fast").exists()
+    native_mod = native.load("collate_fast")
+    native_s = time.time() - t0
+    print(f"native: {os.path.basename(native_mod.__file__)} "
+          f"{'built and loaded' if native_built else 'loaded'} in "
+          f"{native_s:.2f} s", flush=True)
 
     lap("build")
     k1 = check_hist_kernel()
@@ -3978,6 +4139,9 @@ def main():
         batch_launches, cb = run_config_batch_path(tmp, tj)
         lap("config_batch_path")
         print_config_batch(cb, batch_launches, smi)
+        mp_launches, mp = run_multiprocess_path(tmp)
+        lap("multiprocess_path")
+        print_multiprocess(mp, mp_launches, smi)
         batched = check_batched_steps(tj)
         lap("hist_cumsum_batched_steps")
         print(f"hist_cumsum fold-batched steps {batched['config']} "
@@ -4187,6 +4351,7 @@ def main():
     paths = {"scores": score_launches, "telemetry": tel_launches,
              "planner": planner_launches,
              "config_batch": batch_launches,
+             "multiprocess": mp_launches,
              "lopo": lopo_launches,
              "shap": shap_launches, "shap_grid": grid_launches,
              "serve": serve_launches, "fleet": fleet_launches,
@@ -4201,6 +4366,7 @@ def main():
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for kern in (k1, k2)]}
     report = {"nvidia_smi": smi, "build_s": build_s, "nvcc": logs,
+              "native": {"built": native_built, "s": native_s},
               "kernels": [k1, k2], "launches_by_path": paths,
               "hist_real_steps": real,
               "small_reference": small, "exact_fold": exact,
@@ -4209,7 +4375,7 @@ def main():
               "planner_path": members, "planner_path_wall_s": pwall,
               "planner_path_journal": pjournal,
               "budget_preflight": budget,
-              "config_batch_path": cb,
+              "config_batch_path": cb, "multiprocess_path": mp,
               "hist_batched_steps": batched, "planner_profile": member_prof,
               "kill_drill": kill, "sticky_fault_drill": sticky,
               "oom_drill": oom, "lopo_path": lopo_cfgs,

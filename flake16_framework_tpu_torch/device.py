@@ -1,6 +1,7 @@
-"""Device resolution for the port's entry points: one device, or the
-device list a config-batched sweep splits its configs over (the JAX
-package's one-axis "config" mesh)."""
+"""Device resolution for the port's entry points: one device, the device
+list a config-batched sweep splits its configs over (the JAX package's
+one-axis "config" mesh), or one process's share of the cards when the
+batch spans processes (``rank_devices``)."""
 
 import torch
 
@@ -52,3 +53,24 @@ def resolve_devices(devices=None):
     if len(set(devs)) != len(devs):
         raise ValueError(f"a CUDA device is listed twice: {devs}")
     return devs
+
+
+def rank_devices(rank, world_size, per_rank, device_type="cuda"):
+    """(the device list of rank ``rank`` of ``world_size`` processes, each
+    driving ``per_rank`` devices; whether the ranks share one card). On
+    the CPU a rank takes ``per_rank`` entries of ``cpu``. With at least
+    ``world_size * per_rank`` visible CUDA devices the ranks take disjoint
+    contiguous slices, rank-major; with fewer, every rank drives
+    ``cuda:0`` alone (``shared_card`` true: the ranks share the card, or
+    a single process drives one card where it asked for more), since one
+    process may not list a card twice (``resolve_devices``)."""
+    if not 0 <= rank < world_size or per_rank < 1:
+        raise ValueError(f"rank {rank} of {world_size}, {per_rank} devices "
+                         f"a rank")
+    if resolve(device_type).type != "cuda":
+        return resolve_devices([device_type] * per_rank), False
+    if torch.cuda.device_count() >= world_size * per_rank:
+        lo = rank * per_rank
+        return resolve_devices([f"cuda:{i}" for i in range(
+            lo, lo + per_rank)]), False
+    return resolve_devices(["cuda:0"]), True

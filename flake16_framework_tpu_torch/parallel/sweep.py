@@ -43,6 +43,13 @@ by a worker thread of its own under ``torch.cuda.device``; the calling
 thread keeps the guard, the journal and the results, and journals in
 canonical member order. No batching changes a result.
 
+A config batch can also span processes (the JAX package's multi-host
+mesh): an engine given a ``group`` (``parallel/distributed.py``) pads
+the batch to a multiple of the ranks' cards, takes its rank's contiguous
+shard (process-major, as the JAX tool places config rows), splits it over
+its own cards, and all-gathers the host counts, so every rank returns the
+whole batch's results. ``run_grid`` stays single-process.
+
 With a write-ahead journal (``resilience/journal.py``) attached, a config
 resumes at fold granularity: the folds already journaled with matching
 keys are taken as they are, only the missing folds are fit. ``run_grid``
@@ -309,13 +316,17 @@ class SweepEngine:
     batch grows; ``grower`` is the ensembles' grower
     (``trees.ensemble_grower``). ``preflight=False`` skips the budget
     pre-flight: the audit's recorded run (``analysis/ir.py``) measures
-    every plan and holds the budget against what it measured."""
+    every plan and holds the budget against what it measured. ``group``
+    (a ``distributed.ProcessGroup``) makes ``run_config_batch`` split its
+    batch over every rank's cards; the engine's devices are this rank's
+    (``device.rank_devices``)."""
 
     def __init__(self, features, labels_raw, projects, project_names,
                  project_ids, *, max_depth=48, tree_overrides=None,
                  cv="stratified", device=None, devices=None, fused=False,
                  planner_mode=False, dispatch_trees=None,
-                 dispatch_folds=None, grower=None, preflight=True):
+                 dispatch_folds=None, grower=None, preflight=True,
+                 group=None):
         if devices is not None:
             if device is not None:
                 raise ValueError("pass device or devices, not both")
@@ -325,6 +336,7 @@ class SweepEngine:
             self.device = resolve(device)
             self.devices = [self.device]
         self.preflight = preflight
+        self.group = group
         trees.ensemble_grower(grower)               # a bad value raises now
         self.grower = grower
         self.fused = fused
@@ -581,13 +593,18 @@ class SweepEngine:
         """Run a batch of same-family configs across the device list and
         return their results in ``run_config``'s schema. The batch is
         padded to a multiple of the card count with its first config and
-        cut into contiguous shards, one a card; each card grows its
-        shard's configs x folds as tree batches on the group axis
-        (``_fit_groups``: one BFS step or one level serves every config of
-        the shard), under ``TREES_IN_FLIGHT`` over configs x folds x trees
-        when no dispatch bound is given. A padded slot repeats the first
-        config, which the card holding it runs again: wasted work the real
-        configs bear.
+        cut into contiguous shards, one a card (``batch_layout``); each
+        card grows its shard's configs x folds as tree batches on the
+        group axis (``_fit_groups``: one BFS step or one level serves
+        every config of the shard), under ``TREES_IN_FLIGHT`` over configs
+        x folds x trees when no dispatch bound is given. A padded slot
+        repeats the first config, which the card holding it runs again:
+        wasted work the real configs bear. Under a ``group`` the card
+        count is every rank's, this rank runs its contiguous share of the
+        shards, and the ranks' host counts are all-gathered
+        (``ProcessGroup.gather``), so every rank returns the whole batch;
+        a rank that fails makes every rank raise (``RankFailed``). A
+        journal is refused there: the cross-process batch is journal-free.
 
         Staged (default): a ``scores.fit_batch`` span over the fit on
         every card, then a ``scores.score_batch`` span over the counts,
@@ -595,72 +612,93 @@ class SweepEngine:
         real config's folds journaled and then its config record, totals
         the int32 fold sum. Fused: one ``scores.config_batch`` span and one
         combined wall in T_TRAIN, T_TEST = 0.0, and only the config
-        records journaled. The walls are attributed evenly over the real
-        configs, which join ``amortized_configs``: per-config times of a
-        shared batch are not separable. Counts equal ``run_config``'s bit
-        for bit."""
+        records journaled. The walls, the calling rank's (T_TEST, or the
+        combined wall, includes the gather), are attributed evenly over
+        the real configs, which join ``amortized_configs``: per-config
+        times of a shared batch are not separable. Counts equal
+        ``run_config``'s bit for bit."""
         config_batch = [tuple(k) for k in config_batch]
         fs_name, model_name = config_batch[0][1], config_batch[0][4]
         if any((k[1], k[4]) != (fs_name, model_name) for k in config_batch):
             raise ValueError("run_config_batch takes one family's configs")
+        group = self.group
+        if group is not None and self.journal is not None:
+            raise ValueError("a config batch across processes is "
+                             "journal-free: detach the journal")
+        world, rank = (1, 0) if group is None else (group.world_size,
+                                                    group.rank)
         n_cards = len(self._cards)
-        padded = config_batch + [config_batch[0]] * (
-            -len(config_batch) % n_cards)
-        shards = [(card, [padded[i] for i in slots]) for card, slots in
-                  self._shards(len(padded), len(padded) // n_cards)]
+        padded, layout = batch_layout(config_batch, world * n_cards)
+        shards = list(zip(self._cards, layout[rank * n_cards:
+                                              (rank + 1) * n_cards]))
         n_real = len(config_batch)
         family = (fs_name, model_name)
         span_kw = dict(key=(*family, "fused" if self.fused else "staged",
                             len(padded)), batch=n_real,
                        configs=["/".join(k) for k in config_batch])
         journal = self.journal
+        per_fold = journal is not None and not self.fused
+        fit_done = []
 
-        def counts_of(card, shard, fitted, per_fold):
+        def counts_of(card, shard, fitted):
             counts = torch.stack(self._count_groups(shard, card, *fitted))
             if not per_fold:
                 counts = counts.sum(1, dtype=torch.int32)
             return counts.cpu().numpy()
 
+        def fit(card, shard):
+            fitted = self._fit_groups(shard, card)
+            if card.device.type == "cuda":  # the batch's train clock
+                torch.cuda.synchronize(card.device)
+            return fitted
+
+        def local():
+            """This rank's counts, its shards' in order, on the host."""
+            if self.fused:
+                with obs.span("scores.config_batch", counts=launch_counts,
+                              mode="fused", stage="fused", **span_kw):
+                    got = _on_cards([(card, [
+                        lambda card=card, shard=shard: counts_of(
+                            card, shard, self._fit_groups(shard, card))])
+                        for card, shard in shards])
+            else:
+                with obs.span("scores.fit_batch", counts=launch_counts,
+                              mode="staged", stage="fit", **span_kw):
+                    fitted = _on_cards([(card, [
+                        lambda card=card, shard=shard: fit(card, shard)])
+                        for card, shard in shards])
+                    fit_done.append(time.time())
+                with obs.span("scores.score_batch", mode="staged",
+                              stage="predict", **span_kw):
+                    got = _on_cards([(card, [
+                        lambda card=card, shard=shard, f=f[0]: counts_of(
+                            card, shard, f)])
+                        for (card, shard), f in zip(shards, fitted)])
+                    del fitted
+            return np.concatenate([r[0] for r in got])
+
+        t0 = time.time()
+        if group is None:
+            counts = local()
+        else:
+            counts = np.concatenate(group.gather(local))
+            if len(counts) != len(padded):
+                raise RuntimeError(
+                    f"the ranks ran {len(counts)} slots of {len(padded)}: "
+                    f"every rank must drive {n_cards} card(s)")
+        t1 = time.time()
+        counts = counts[:n_real]
         if self.fused:
-            with obs.span("scores.config_batch", counts=launch_counts,
-                          mode="fused", stage="fused", **span_kw):
-                t0 = time.time()
-                got = _on_cards([(card, [
-                    lambda card=card, shard=shard: counts_of(
-                        card, shard, self._fit_groups(shard, card), False)])
-                    for card, shard in shards])
-                wall = (time.time() - t0) / n_real
-            counts = np.concatenate([r[0] for r in got])
+            wall = (t1 - t0) / n_real
             out = [self._result(counts[i], wall / self.n_folds, 0.0)
                    for i in range(n_real)]
             self.fused_configs.update(config_batch)
         else:
-            def fit(card, shard):
-                fitted = self._fit_groups(shard, card)
-                if card.device.type == "cuda":  # the batch's train clock
-                    torch.cuda.synchronize(card.device)
-                return fitted
-
-            with obs.span("scores.fit_batch", counts=launch_counts,
-                          mode="staged", stage="fit", **span_kw):
-                t0 = time.time()
-                fitted = _on_cards([(card, [
-                    lambda card=card, shard=shard: fit(card, shard)])
-                    for card, shard in shards])
-                t_train = (time.time() - t0) / n_real
-            with obs.span("scores.score_batch", mode="staged",
-                          stage="predict", **span_kw):
-                t0 = time.time()
-                got = _on_cards([(card, [
-                    lambda card=card, shard=shard, f=f[0]: counts_of(
-                        card, shard, f, journal is not None)])
-                    for (card, shard), f in zip(shards, fitted)])
-                del fitted
-                t_test = (time.time() - t0) / n_real
-            counts = np.concatenate([r[0] for r in got])
-            by_fold = counts if journal is not None else None
+            by_fold = counts if per_fold else None
             if by_fold is not None:
                 counts = by_fold.sum(1, dtype=np.int32)
+            t_train = (fit_done[0] - t0) / n_real
+            t_test = (t1 - fit_done[0]) / n_real
             out = [self._result(counts[i], t_train / self.n_folds,
                                 t_test / self.n_folds)
                    for i in range(n_real)]
@@ -871,6 +909,10 @@ class SweepEngine:
         padded to the card count, ``run_plan``). Between the two, the
         budget pre-flight (``_preflight_plan_budget``) may refuse every
         plan with ``PlanOverBudget`` before the first one dispatches."""
+        if self.group is not None:
+            raise ValueError(
+                "run_grid runs in one process: across processes, run one "
+                "config batch at a time (run_config_batch)")
         scores = dict(ledger or {})
         if config_list is None:
             config_list = cfg.iter_config_keys()
@@ -942,6 +984,18 @@ class SweepEngine:
             for keys, r in zip(pl.configs, res):
                 put(keys, r)
         return scores
+
+
+def batch_layout(config_batch, n_cards):
+    """(the batch padded to a multiple of ``n_cards`` with its first
+    config, its contiguous shards, one a card in the cards' global order
+    (process-major across ranks: rank r's cards are r * local .. (r + 1)
+    * local - 1)). The JAX package's ``P("config")`` placement."""
+    padded = list(config_batch) + [config_batch[0]] * (
+        -len(config_batch) % n_cards)
+    width = len(padded) // n_cards
+    return padded, [padded[c * width:(c + 1) * width]
+                    for c in range(n_cards)]
 
 
 def iter_family_batches(configs, batch_size):

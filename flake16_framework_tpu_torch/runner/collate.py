@@ -20,9 +20,13 @@ The inputs, the output and every rule are the JAX package's:
   fn_id 0 and a project with an empty test_files set or churn dict are
   dropped, as the reference's ``all(...)`` checks drop them.
 
-The JAX package decodes numbits and sums the coverage features through a
-C++ fast path when it builds; this package has the Python paths only,
-which give the same results.
+The numbits decode and the coverage feature sums, the collation's hot
+loops, run in C++ (``native/collate_fast.cc``, built at first use by
+``native.load``). Where the JAX package falls back to its Python bodies
+when that build fails, this package raises (``native.NativeBuildError``).
+The Python bodies stay beside them as the plain versions
+(``_numbits_to_lines_py``, ``_coverage_features_py``) that the tests hold
+the native module against.
 """
 
 import json
@@ -31,15 +35,14 @@ import pickle
 import sqlite3
 from dataclasses import dataclass, field
 
+from flake16_framework_tpu_torch import native
 from flake16_framework_tpu_torch.constants import (
     DATA_DIR, FLAKY, N_RUNS, NON_FLAKY, OD_FLAKY, SUBJECTS_DIR, TESTS_FILE,
 )
 from flake16_framework_tpu_torch.utils.atomic import atomic_write
 
 
-def numbits_to_lines(blob):
-    """Decode a coverage.py numbits blob: bit k of byte n set => line
-    8n+k covered."""
+def _numbits_to_lines_py(blob):
     out = set()
     for byte_i, byte in enumerate(blob):
         while byte:
@@ -47,6 +50,12 @@ def numbits_to_lines(blob):
             out.add(byte_i * 8 + low.bit_length() - 1)
             byte &= byte - 1
     return out
+
+
+def numbits_to_lines(blob):
+    """Decode a coverage.py numbits blob: bit k of byte n set => line
+    8n+k covered. Runs in the native module."""
+    return native.load().numbits_to_lines(blob)
 
 
 @dataclass
@@ -202,9 +211,7 @@ def label_test(runs, n_runs=N_RUNS):
     return max(base.min_fail_run, base.min_pass_run), FLAKY
 
 
-def coverage_features(coverage, test_files, churn):
-    """(covered lines, churn-weighted covered changes, source-only
-    covered lines): the 3 coverage features."""
+def _coverage_features_py(coverage, test_files, churn):
     n_lines = n_changes = n_src_lines = 0
 
     for file_name, lines in coverage.items():
@@ -215,6 +222,12 @@ def coverage_features(coverage, test_files, churn):
             n_src_lines += len(lines)
 
     return n_lines, n_changes, n_src_lines
+
+
+def coverage_features(coverage, test_files, churn):
+    """(covered lines, churn-weighted covered changes, source-only
+    covered lines): the 3 coverage features. Runs in the native module."""
+    return native.load().coverage_features(coverage, test_files, churn)
 
 
 def assemble_tests(projects, n_runs=N_RUNS):
