@@ -23,7 +23,9 @@ be valid (backend ``cuda``, the card's name), ``report --json``,
 ``report --attrib`` and ``trace`` read the run, the fit and explain
 spans' ``k1_launches``/``k2_launches`` sum to the wrappers' counts, and
 each profile's CUDA kernel slices hold K1 and K2 as many times as the
-wrappers counted. The RF config then runs four more times here,
+wrappers counted, and ``report --attrib`` holds the entry points' ``cost``
+events (``obs/costs.py``) and splits the fit into the grower's four
+sub-stages. The RF config then runs four more times here,
 telemetry on, off, off, on, for telemetry's cost to the config walls.
 The card's scaler is held bitwise against the CPU's in the small
 reference.
@@ -72,11 +74,17 @@ completes every config), and a real out-of-memory error retried once as
 
 The ``serve`` phase registers the grid phase's three models (ET and RF fit
 through K1, a Decision Tree; seed 0) in the in-process scoring service,
-warms it at buckets (8, 32, 128) and drives 1024 requests of 16 rows from
-8 clients, predict and SHAP in turn (SHAP on K2 through the single-bucket
-rows, one launch a microbatch); it holds each model, kind and bucket
-against the direct call, K2 on the ET model's serving rows against its
-plain version, times K2 at S = 8, 32 and 128, and runs the drain drill: the
+warms it at buckets (8, 32, 128), which captures one CUDA graph a model,
+kind and bucket (18, and none under the load), and drives 1024 requests
+of 16 rows from 8 clients, predict and SHAP in turn (SHAP on K2 through
+the single-bucket rows, one launch a microbatch, counted at each graph
+replay); it holds each model, kind and bucket against the direct call,
+each graph's replay against its eager body (predict bitwise, SHAP within
+SHAP_TOL and against ``unit_shap_plain`` on the live rows), two threads
+replaying one graph, a reload capturing again, times the eager body
+against the replay at each kind and bucket in turns, K2 on the ET
+model's serving rows against its plain version, times K2 at S = 8, 32
+and 128, and runs the drain drill: the
 ``serve --hold`` verb in a child process, SIGTERM, its drain accounting,
 and the flushed warm manifest against a reload in this process.
 
@@ -303,20 +311,17 @@ def _device_ms(fn, reps, warm=2):
 
 
 def hist_bound_ms(rel, w, bin_t, n_nodes, n_bins):
-    """K1's least time on the card for these inputs: each input read once
-    ([T, N] int32 rel, f32 w and wy, [F, N] or [G, F, N] uint8 bins) and
-    both [T, F, W, B] f32 outputs written once, over the memory rate,
-    against the adds (two for each in-window sample of weight > 0 and
-    feature, two an output element) over the f32 rate. Returns (ms,
-    "bytes" or "operations")."""
-    n_tree, n = rel.shape
-    n_feat = bin_t.shape[-2]
-    in_window = int(((rel >= 0) & (rel < n_nodes) & (w > 0)).sum())
-    out_elems = n_tree * n_feat * n_nodes * n_bins
-    nbytes = n_tree * n * 12 + bin_t.numel() + 2 * out_elems * 4
-    ops = 2 * n_feat * in_window + 2 * out_elems
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    """K1's least time on the card for these inputs, from the kernel's
+    work (``kernels/hist.work``): each input read once ([T, N] int32 rel,
+    f32 w and wy, [F, N] or [G, F, N] uint8 bins) and both [T, F, W, B]
+    f32 outputs written once, over the memory rate, against the adds (two
+    for each in-window sample of weight > 0 and feature, two an output
+    element) over the f32 rate. Returns (ms, "bytes" or "operations")."""
+    from flake16_framework_tpu_torch.kernels.hist import work
+
+    wk = work(rel, w, bin_t, n_nodes, n_bins)
+    bytes_ms = wk["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = wk["flops"] / F32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), \
         "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -535,39 +540,6 @@ def check_real_steps(tests_file):
     return out
 
 
-def one_counts(fid, z, lo, hi, u, scale, x):
-    """Per work item, the number of (live slot, sample) pairs with o = 1,
-    int64 [R], computed on the card in the plain version's row batches."""
-    from flake16_framework_tpu_torch.kernels.treeshap_unit import PLAIN_ROWS
-
-    cap = fid.shape[1]
-    slots = torch.arange(cap, device=x.device)
-    out = []
-    for a in range(0, fid.shape[0], PLAIN_ROWS):
-        b = slice(a, a + PLAIN_ROWS)
-        x_sel = x.T[fid[b].long()]                              # [r, cap, S]
-        o = (x_sel > lo[b, :, None]) & (x_sel <= hi[b, :, None])
-        live = (slots < u[b, None])[..., None]
-        out.append((o & live).sum((1, 2)))
-    return torch.cat(out)
-
-
-def unit_ops(u, n1, n_samples):
-    """f32 flops (FMA = 2) that the kernel's division-free formulation
-    needs for work items of live counts u [R] against ``n_samples``
-    samples, with n1 [R] the (live slot, sample) pairs with o = 1 of each
-    (``one_counts``). Per (work item, sample): 2u one-fraction compares;
-    u^2 for EXTEND (step k: one multiply at position 0, an FMA at each of
-    1..k, a select at k + 1); u + 1 multiplies back to the reference's
-    weights; 2u for the shared o = 0 sum S0; 4u for each o = 1 slot's
-    unwind (two FMAs a position); 2u for the contributions (a multiply and
-    an add a slot): u^2 + 7u + 1 + 4u n1. Work per path that does not
-    depend on the sample (the coefficients) is left out."""
-    u, n1 = u.double(), n1.double()
-    return float((u * u + 7.0 * u + 1.0).sum() * n_samples
-                 + (4.0 * u * n1).sum())
-
-
 def unit_ops_division(u, n_samples):
     """The bound of the division form this kernel replaced, kept for
     comparison: 9u^2 + 21u operations per (work item, sample), each add,
@@ -586,7 +558,7 @@ def unit_report(members):
     the operations of these inputs (``unit_ops``) or their bytes,
     whichever is larger."""
     from flake16_framework_tpu_torch.kernels.treeshap_unit import (
-        unit_shap, unit_shap_plain,
+        one_counts, unit_ops, unit_shap, unit_shap_plain,
     )
     from flake16_framework_tpu_torch.ops.treeshap import bucket_inputs
 
@@ -1011,6 +983,13 @@ def run_telemetry_path(tmp, tj, ref):
              "report --json invalid")
     attrib_text = io.StringIO()
     attrib = report.report_main([run_dir, "--attrib"], out=attrib_text)
+    costs = attrib["kernel_costs"]
+    _require({"scores.fit", "shap.fused_fit", "shap.unit_pallas"}
+             <= set(costs) and costs["scores.fit"]["flops"] > 0
+             and {f"fit.{s}" for s in ("bin", "hist_build", "split_scan",
+                                       "partition")} <= set(attrib["stages"]),
+             f"attrib: stages {sorted(attrib['stages'])}, kernel costs "
+             f"{sorted(costs)}")
     trace_path = trace.trace_main([run_dir], out=io.StringIO())
     with open(trace_path) as fd:
         xs = [e for e in json.load(fd)["traceEvents"] if e.get("ph") == "X"]
@@ -1055,6 +1034,9 @@ def run_telemetry_path(tmp, tj, ref):
         "report_counters": rep["counters"],
         "attrib_top": list(attrib["configs"])[:3],
         "attrib_launch_totals": attrib["kernel_launch_totals"],
+        "attrib_stages": attrib["stages"], "attrib_kernel_costs": costs,
+        "pass_s": {e["span"]: e.get("pass_s") for e in events
+                   if e["kind"] == "cost"},
         "attrib_text_lines": len(attrib_text.getvalue().splitlines()),
         "trace_events": len(xs)}, os.path.join(out_dir, "shap.pkl")
 
@@ -1907,6 +1889,7 @@ def run_serve_path(tmp, tj):
     a model and bucket at warm). Returns (launches, report, the service
     still running, the registry, the data)."""
     from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.obs import aot
     from flake16_framework_tpu_torch.serve import ModelRegistry, ScoringService
     from flake16_framework_tpu_torch.serve.cli import sustained_load
 
@@ -1922,17 +1905,36 @@ def run_serve_path(tmp, tj):
     registered = _read_counts()
     peak_register = torch.cuda.max_memory_allocated() / 1e9
     svc = ScoringService(registry, buckets=SERVE_BUCKETS)
+    # The warm's reserved growth with the allocator's free cache emptied
+    # on both sides: the graphs' private pools, their static buffers and
+    # the prepared models.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    compiles0 = aot.dispatch_stats()["compiles"]
     t0 = time.time()
     svc.start()
     warm_s = time.time() - t0
+    warm_compiles = aot.dispatch_stats()["compiles"] - compiles0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graphs_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
     warmed = _read_counts()
     clock = _KindClock(svc)
     torch.cuda.reset_peak_memory_stats()
+    compiles0 = aot.dispatch_stats()["compiles"]
     load = sustained_load(clock, feats, registry.ids(),
                           n_requests=SERVE_REQUESTS, rows=SERVE_ROWS,
                           kinds=("predict", "shap"), clients=SERVE_CLIENTS)
+    load_compiles = aot.dispatch_stats()["compiles"] - compiles0
     launches = _read_counts()
     peak_load = torch.cuda.max_memory_allocated() / 1e9
+    triples = len(GRID_CONFIGS) * 2 * len(SERVE_BUCKETS)
+    _require(warm_compiles == triples and load_compiles == 0,
+             f"graph captures: {warm_compiles} at warm for {triples} "
+             f"(model, kind, bucket) triples, {load_compiles} under load")
+    captures = {kind: sorted(g.capture_s for g in c.graphs().values())
+                for kind, c in svc.store._caches.items()}
     _require(load["n_errors"] == 0, f"serve load errors: {load['errors']}")
     _require(load["requests"] == SERVE_REQUESTS
              and load["completed"] == SERVE_REQUESTS,
@@ -1949,6 +1951,8 @@ def run_serve_path(tmp, tj):
              f"warm launches {warmed}")
     report = {
         "register_s": register_s, "warm_s": warm_s,
+        "warm_compiles": warm_compiles, "load_compiles": load_compiles,
+        "capture_s": captures, "graphs_reserved_gb": graphs_gb,
         "register_launches": registered, "warm_launches": warmed,
         "load_launches": {k: launches[k] - warmed[k] for k in launches},
         "peak_allocated_gb_register": peak_register,
@@ -2006,6 +2010,174 @@ def check_served_values(svc, registry, feats, buckets=SERVE_BUCKETS):
     return rows
 
 
+def _timed_calls(fn, reps=20):
+    """Median host ms of ``fn()`` and a synchronize, over ``reps``."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def check_served_graphs(svc, registry, feats, buckets=SERVE_BUCKETS):
+    """The store's CUDA graphs (``obs/aot.py``) against their eager bodies
+    (``traceable()``, handed out by ``audit_handles``) for every model,
+    kind and bucket, on random rows: predict bitwise, SHAP within
+    SHAP_TOL, a SHAP replay counting one K2 launch and a predict replay
+    none, and each model's SHAP replay at the largest bucket against
+    ``unit_shap_plain`` on its live serving rows (rows with u = 0 add
+    exact zeros) within SHAP_TOL (the ET model's record is the serve
+    phase's K2 check); no capture on the way. Two threads replay the ET model's SHAP graph at
+    the middle bucket with different batches (each must get its own
+    answer), and a reload of that model (a new object for its id)
+    captures again at the next call. The eager body (with the batch's
+    host-to-device copy, as the store ran it before graphs) and the
+    replay (``store.call``) are timed at each kind and bucket on the ET
+    model, in turns (eager, replay, replay, eager). Returns the
+    report."""
+    import threading
+
+    from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+        unit_shap, unit_shap_plain,
+    )
+    from flake16_framework_tpu_torch.obs import aot
+    from flake16_framework_tpu_torch.ops.preprocess import transform
+    from flake16_framework_tpu_torch.serve import model_id_for
+
+    store = svc.store
+    rs = np.random.RandomState(7)
+    rows = []
+    compiles0 = aot.dispatch_stats()["compiles"]
+
+    def batch(model, bucket):
+        pick = rs.choice(len(feats), bucket, replace=False)
+        return np.ascontiguousarray(feats[pick][:, list(model.cols)],
+                                    dtype=np.float32)
+
+    def eager(model, kind, x):
+        fn, args, kw = store.audit_handles(model, x)[f"serve.{kind}"]
+        return fn(*args, **kw)
+
+    for model in registry.models():
+        prep = store._prepare(model)
+        live = prep.shap_rows[4] > 0
+        live_rows = tuple(t[live] for t in prep.shap_rows)
+        for bucket in buckets:
+            x = batch(model, bucket)
+            for kind in ("predict", "shap"):
+                k2 = unit_shap.launches
+                got = store.call(model, kind, x)
+                torch.cuda.synchronize()
+                launched = unit_shap.launches - k2
+                want = eager(model, kind, x)
+                rec = {"model": model.model_id, "kind": kind,
+                       "bucket": bucket, "replay_k2": launched}
+                _require(launched == (kind == "shap"),
+                         f"{model.model_id} {kind}@{bucket}: a replay "
+                         f"counted {launched} K2 launches")
+                if kind == "predict":
+                    _require(torch.equal(got, want),
+                             f"{model.model_id} predict@{bucket}: the "
+                             f"replay differs from the eager body")
+                    rec["bitwise"] = True
+                else:
+                    ref = float(want.abs().max())
+                    err = float((got - want).abs().max())
+                    _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+                             f"{model.model_id} shap@{bucket}: the replay "
+                             f"is {err} off the eager body (max {ref})")
+                    rec.update(max_abs_err=err, max_abs=ref)
+                    if bucket == max(buckets):
+                        xp = transform(torch.from_numpy(x).cuda(), prep.mu,
+                                       prep.wmat).contiguous()
+                        plain = unit_shap_plain(*live_rows, xp)
+                        err_plain = float((got - plain.T / prep.n_trees)
+                                          .abs().max())
+                        _require(err_plain <= SHAP_TOL[0] * ref
+                                 + SHAP_TOL[1],
+                                 f"{model.model_id} shap@{bucket}: the "
+                                 f"replay is {err_plain} off "
+                                 f"unit_shap_plain (max {ref})")
+                        rec.update(max_abs_err_plain=err_plain,
+                                   live_rows=int(live.sum()),
+                                   rows=int(live.numel()),
+                                   max_abs_plain=float(plain.abs().max()),
+                                   k2_max_abs_err=float(
+                                       (unit_shap(*prep.shap_rows, xp)
+                                        - plain).abs().max()))
+                rows.append(rec)
+    _require(aot.dispatch_stats()["compiles"] == compiles0,
+             "replays of warmed graphs captured again")
+
+    et = registry.get(model_id_for(GRID_CONFIGS[0]))
+    mid_bucket = buckets[len(buckets) // 2]
+    xs = [batch(et, mid_bucket) for _ in range(2)]
+    want = [eager(et, "shap", x) for x in xs]
+    got, errors = {}, []
+
+    def replays(i):
+        try:
+            torch.cuda.set_device(store.device)
+            for _ in range(20):
+                got[i] = store.call(et, "shap", xs[i])
+            torch.cuda.synchronize()
+        except Exception as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=replays, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _require(not errors, f"concurrent replays raised {errors}")
+    concurrent = []
+    for i in (0, 1):
+        ref = float(want[i].abs().max())
+        err = float((got[i] - want[i]).abs().max())
+        other = float((got[i] - want[1 - i]).abs().max())
+        _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1] and other > err,
+                 f"concurrent replay {i}: {err} off its own answer, "
+                 f"{other} off the other thread's")
+        concurrent.append({"max_abs_err": err, "max_abs_to_other": other})
+
+    twin = type(et)(**{k: getattr(et, k) for k in et.__slots__})
+    before = store.call(et, "shap", xs[0])
+    compiles0 = aot.dispatch_stats()["compiles"]
+    registry.register(twin, persist=False)
+    try:
+        after = store.call(twin, "shap", xs[0])
+        recaptured = aot.dispatch_stats()["compiles"] - compiles0
+    finally:
+        registry.register(et, persist=False)
+    _require(recaptured == 1 and torch.equal(before, after),
+             f"reload: {recaptured} captures, replay equal "
+             f"{torch.equal(before, after)}")
+
+    timings = []
+    for bucket in buckets:
+        x = batch(et, bucket)
+        for kind in ("predict", "shap"):
+            fn, args, kw = store.audit_handles(et, x)[f"serve.{kind}"]
+
+            def run_eager():
+                fn(args[0], torch.as_tensor(x, device=store.device), **kw)
+
+            def run_replay():
+                store.call(et, kind, x)
+
+            run_eager(), run_replay()
+            e1 = _timed_calls(run_eager)
+            r1 = _timed_calls(run_replay)
+            r2 = _timed_calls(run_replay)
+            e2 = _timed_calls(run_eager)
+            timings.append({"kind": kind, "bucket": bucket,
+                            "eager_ms": [e1, e2], "replay_ms": [r1, r2]})
+    return {"values": rows, "concurrent": concurrent,
+            "reload_captures": recaptured, "eager_vs_replay": timings}
+
+
 def _serving_rows(registry, feats, keys, n_samples):
     """(``graph_inputs`` rows, transformed samples [n_samples, F]) of the
     registered model of ``keys``, on the card."""
@@ -2050,18 +2222,25 @@ def check_unit_rows(registry, feats, samples):
     return out
 
 
-def serve_unit_report(registry, feats):
+def serve_unit_report(registry, feats, graphs):
     """K2 on the single-bucket rows (``graph_inputs``) of the ET and RF
-    models at the serving buckets' sample counts: at S = 128 on the ET
-    rows against ``unit_shap_plain`` (``check_unit_rows``), and its ms at
-    S = 8, 32 and 128 on both (``_cuda_ms``) against the operation bound
-    of these inputs (``unit_ops`` over the live rows) and their bytes."""
+    models at the serving buckets' sample counts: the check at S = 128 on
+    the ET rows against ``unit_shap_plain`` is ``check_served_graphs``'
+    (``graphs``), and its ms at S = 8, 32 and 128 on both (``_cuda_ms``)
+    against the operation bound of these inputs (``unit_ops`` over the
+    live rows) and their bytes."""
     from flake16_framework_tpu_torch.kernels.treeshap_unit import (
-        unit_shap, unit_shap_plain,
+        one_counts, unit_ops, unit_shap, unit_shap_plain,
     )
+    from flake16_framework_tpu_torch.serve import model_id_for
 
-    out = {"check": check_unit_rows(registry, feats,
-                                    (max(SERVE_BUCKETS),))[0],
+    et = model_id_for(GRID_CONFIGS[0])
+    rec = next(r for r in graphs["values"] if r["model"] == et
+               and r["kind"] == "shap" and "k2_max_abs_err" in r)
+    out = {"check": {"config": "/".join(GRID_CONFIGS[0]),
+                     "samples": rec["bucket"], "rows": rec["rows"],
+                     "max_abs_err": rec["k2_max_abs_err"],
+                     "max_abs_plain": rec["max_abs_plain"]},
            "timings": []}
     for keys in GRID_CONFIGS[:2]:
         rows, xp = _serving_rows(registry, feats, keys, max(SERVE_BUCKETS))
@@ -3370,10 +3549,19 @@ def run_perfdb_path(tmp, tj, tel, tel_launches, planner_launches, registry,
         rows = perfdb.load(db)
         kern = {r["kernel"]: r["metrics"]["n"] for r in rows
                 if r["kernel"].startswith("kernel.")}
+        launch_rows = {k: kern.get(k) for k in ("kernel.hist_cumsum",
+                                                "kernel.treeshap_unit")}
+        # and one cost row an instrumented entry point (obs/costs.py)
+        cost_rows = {r["kernel"]: r["metrics"] for r in rows
+                     if r["kernel"].startswith("kernel.")
+                     and r["kernel"] not in launch_rows}
         _require(rows and {r["backend"] for r in rows} == {"cuda"}
-                 and kern == {"kernel.hist_cumsum": tel_launches[
+                 and launch_rows == {"kernel.hist_cumsum": tel_launches[
                      "hist_cumsum"], "kernel.treeshap_unit": tel_launches[
-                     "treeshap_unit"]},
+                     "treeshap_unit"]}
+                 and {"kernel.scores.fit", "kernel.shap.fused_fit",
+                      "kernel.shap.unit_pallas"} <= set(cost_rows)
+                 and cost_rows["kernel.scores.fit"]["flops"] > 0,
                  f"perf ingest: backends {sorted({r['backend'] for r in rows})}"
                  f", kernel rows {kern} against {tel_launches}")
         configs = MAIN_CONFIGS + DT_CONFIGS
@@ -3861,6 +4049,34 @@ def print_audit(au, smi):
               f"{d['veto'][fam]['vetoed']}", flush=True)
 
 
+def print_graphs(serve, smi):
+    """The serving store's graphs: captures, walls, memory, the checks
+    against the eager bodies, and eager against replay by kind and
+    bucket."""
+    g = serve["graphs"]
+    walls = [w for ws in serve["capture_s"].values() for w in ws]
+    shap = [r for r in g["values"] if r["kind"] == "shap"]
+    print(f"serve graphs ({smi}): {serve['warm_compiles']} captures at warm "
+          f"(one a model, kind and bucket), {serve['load_compiles']} under "
+          f"load; capture walls {min(walls):.4f}-{max(walls):.4f} s (sum "
+          f"{sum(walls):.3f} s); warm's reserved growth (graphs' pools, "
+          f"static buffers, prepared models) {serve['graphs_reserved_gb']:.3f}"
+          f" GB; replays == eager bodies (predict bitwise, "
+          f"SHAP max err {max(r['max_abs_err'] for r in shap):.3g}, against "
+          f"unit_shap_plain "
+          f"{max(r.get('max_abs_err_plain', 0) for r in shap):.3g});"
+          f" K2 against it on the live rows at S = 128 "
+          f"{max(r.get('k2_max_abs_err', 0) for r in shap):.3g}; one K2 "
+          f"launch a SHAP replay; concurrent replays "
+          f"{json.dumps(g['concurrent'])}; reload captured "
+          f"{g['reload_captures']}", flush=True)
+    for t in g["eager_vs_replay"]:
+        print(f"serve {t['kind']}@{t['bucket']} ET ({smi}): eager "
+              f"{t['eager_ms'][0]:.3f}/{t['eager_ms'][1]:.3f} ms, replay "
+              f"{t['replay_ms'][0]:.3f}/{t['replay_ms'][1]:.3f} ms a call "
+              f"(median of 20, eager replay replay eager)", flush=True)
+
+
 def print_tune_lint(tl, smi):
     for fam, f in tl["dry_run"].items():
         print(f"tune --dry-run {fam} ({f['shape']}): field "
@@ -3956,6 +4172,14 @@ def print_telemetry(tel, launches, smi):
           f"(valid), --attrib, trace ({tel['trace_events']} spans) read the "
           f"run; span launches {json.dumps(sums)} == counted; launches "
           f"{launches}", flush=True)
+    stages = {k: round(v, 3) for k, v in tel["attrib_stages"].items()}
+    print(f"telemetry cost events ({smi}): report --attrib stages "
+          f"{json.dumps(stages)}; " + "; ".join(
+              f"{k} {c['n']}x {c['flops'] / 1e9:.3f} GFLOP "
+              f"{c['bytes'] / 1e9:.3f} GB compile {c['compile_s']:.3f} s"
+              for k, c in sorted(tel["attrib_kernel_costs"].items()))
+          + f"; counted calls' walls (last of each span) "
+          f"{json.dumps(tel['pass_s'])} s", flush=True)
     for name, p in prof.items():
         print(f"telemetry profile {name}: {p['kernel_slices']} kernel "
               f"slices, K1 {p['hist_cumsum']}, K2 {p['treeshap_unit']} == "
@@ -4242,8 +4466,10 @@ def main():
             lap("serve_path")
             serve["values"] = check_served_values(svc, serve_reg,
                                                   serve_feats)
-            serve["treeshap_unit"] = serve_unit_report(serve_reg,
-                                                       serve_feats)
+            serve["graphs"] = check_served_graphs(svc, serve_reg,
+                                                  serve_feats)
+            serve["treeshap_unit"] = serve_unit_report(
+                serve_reg, serve_feats, serve["graphs"])
             lap("serve_checks")
         finally:
             svc.stop()
@@ -4294,6 +4520,7 @@ def main():
                   f"{k['rps']:.1f} rps, p50 {k['p50_ms']:.3f} ms, p99 "
                   f"{k['p99_ms']:.3f} ms (client side), {k['dispatches']} "
                   f"microbatches", flush=True)
+        print_graphs(serve, smi)
         worst = {k: max(r[k] for r in serve["values"]) for k in (
             "predict_max_abs_err", "shap_max_abs_err",
             "local_accuracy_max_err")}

@@ -58,11 +58,12 @@ RULES = {r.id: r for r in (
 # Kinds whose emitters live OUTSIDE the package lint scope (the default
 # ``lint`` paths). The port's schema keeps the JAX package's event kinds
 # so that its validators, ``report`` and ``trace`` read the JAX
-# package's runs: ``stage`` (the JAX bench's stage records) and ``cost``
-# (XLA's cost analysis, which PyTorch has no source for) are emitted by
-# the JAX package only. Without this, the reverse O104 direction would
-# flag kinds that are in fact emitted, by the other package.
-_EXTERNAL_EMITTERS = frozenset({"stage", "cost"})
+# package's runs: ``stage`` (the JAX bench's stage records) is emitted by
+# the JAX package only. (``cost`` has the port's own emitters, the
+# counting passes of ``obs/costs.py`` and the graph captures of
+# ``obs/aot.py``.) Without this, the reverse O104 direction would flag
+# kinds that are in fact emitted, by the other package.
+_EXTERNAL_EMITTERS = frozenset({"stage"})
 
 _SPAN_NAME_RE = re.compile(r"^[a-z0-9_.]+$")
 

@@ -18,7 +18,10 @@ f32 sums are exact (whole weights whose per-node sums stay below 2^24, as
 the grower's are).
 
 ``cum_hists`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; it never falls back.
+version only for CPU tensors; it never falls back. ``work`` is the
+kernel's analytic work on given inputs, which each launch adds to an open
+counting pass (``obs/costs.py``) and ``chip_smoke.py`` turns into the
+kernel's bound.
 """
 
 import ctypes
@@ -96,6 +99,21 @@ def check_inputs(rel, w, wy, bin_t, n_nodes, n_bins):
                          f"are more tiles than a grid holds")
 
 
+def work(rel, w, bin_t, n_nodes, n_bins):
+    """{"flops", "bytes"} of one launch on these inputs: each input read
+    once ([T, N] int32 rel, f32 w and wy, [F, N] or [G, F, N] uint8 bins)
+    and both [T, F, W, B] f32 outputs written once; two adds for each
+    in-window sample of weight > 0 and feature, and two an output element.
+    The in-window count is read from the card (one host read)."""
+    n_tree, n = rel.shape
+    n_feat = bin_t.shape[-2]
+    in_window = int(((rel >= 0) & (rel < n_nodes) & (w > 0)).sum())
+    out_elems = n_tree * n_feat * n_nodes * n_bins
+    return {"flops": float(2 * n_feat * in_window + 2 * out_elems),
+            "bytes": float(n_tree * n * 12 + bin_t.numel()
+                           + 2 * out_elems * 4)}
+
+
 def cum_hists_plain(rel, w, wy, bin_t, n_nodes, n_bins):
     """The plain version: one-hots contracted over samples in f32
     (``torch.einsum`` on bf16 would return bf16 and round counts above
@@ -138,8 +156,8 @@ def cum_hists(rel, w, wy, bin_t, n_nodes, n_bins):
         torch.cuda.current_stream(rel.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hist_cumsum launch failed: CUDA error {err}")
-    with build.COUNT_LOCK:
-        cum_hists.launches += 1
+    build.count_launch(cum_hists, lambda: work(rel, w, bin_t, n_nodes,
+                                               n_bins))
     return cw, cwy
 
 

@@ -18,6 +18,9 @@ caller divides by the tree count).
 version only for CPU tensors; it never falls back. The kernel divides in
 no per-sample loop: ``unit_tables`` holds the coefficients that depend
 only on u and a position, and the wrapper passes them with every launch.
+``work`` is the kernel's analytic work on given inputs, which each launch
+adds to an open counting pass (``obs/costs.py``) and ``chip_smoke.py``
+turns into the kernel's bound.
 """
 
 import ctypes
@@ -72,6 +75,48 @@ def unit_tables():
         for j in range(u + 1):
             t[TABLE_F, u, j] = math.factorial(j) / math.factorial(u + 1)
     return t.to(torch.float32)
+
+
+def one_counts(fid, z, lo, hi, u, scale, x):
+    """Per work item, the number of (live slot, sample) pairs with o = 1,
+    int64 [R], computed on x's device in the plain version's row
+    batches."""
+    cap = fid.shape[1]
+    slots = torch.arange(cap, device=x.device)
+    out = []
+    for a in range(0, fid.shape[0], PLAIN_ROWS):
+        b = slice(a, a + PLAIN_ROWS)
+        x_sel = x.T[fid[b].long()]                              # [r, cap, S]
+        o = (x_sel > lo[b, :, None]) & (x_sel <= hi[b, :, None])
+        live = (slots < u[b, None])[..., None]
+        out.append((o & live).sum((1, 2)))
+    return torch.cat(out)
+
+
+def unit_ops(u, n1, n_samples):
+    """f32 flops (FMA = 2) that the kernel's division-free formulation
+    needs for work items of live counts u [R] against ``n_samples``
+    samples, with n1 [R] the (live slot, sample) pairs with o = 1 of each
+    (``one_counts``). Per (work item, sample): 2u one-fraction compares;
+    u^2 for EXTEND (step k: one multiply at position 0, an FMA at each of
+    1..k, a select at k + 1); u + 1 multiplies back to the reference's
+    weights; 2u for the shared o = 0 sum S0; 4u for each o = 1 slot's
+    unwind (two FMAs a position); 2u for the contributions (a multiply and
+    an add a slot): u^2 + 7u + 1 + 4u n1. Work per path that does not
+    depend on the sample (the coefficients) is left out."""
+    u, n1 = u.double(), n1.double()
+    return float((u * u + 7.0 * u + 1.0).sum() * n_samples
+                 + (4.0 * u * n1).sum())
+
+
+def work(fid, z, lo, hi, u, scale, x):
+    """{"flops", "bytes"} of one launch on these inputs: ``unit_ops`` on
+    the inputs' o = 1 counts (read from the card: one host read), and
+    each input read once and phi [F, S] written once."""
+    args = (fid, z, lo, hi, u, scale)
+    return {"flops": unit_ops(u, one_counts(*args, x), x.shape[0]),
+            "bytes": float(sum(a.numel() * 4 for a in args)
+                           + 2 * x.numel() * 4)}
 
 
 def unit_shap_plain(fid, z, lo, hi, u, scale, x):
@@ -193,8 +238,7 @@ def unit_shap(fid, z, lo, hi, u, scale, x):
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"treeshap_unit launch failed: CUDA error {err}")
-    with build.COUNT_LOCK:
-        unit_shap.launches += 1
+    build.count_launch(unit_shap, lambda: work(fid, z, lo, hi, u, scale, x))
     return partial.sum(0)
 
 

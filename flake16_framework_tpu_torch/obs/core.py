@@ -182,13 +182,15 @@ def shutdown():
     global _state, _flight
     if _state is not None:
         _finalize_manifest()
+        # A beat in flight finishes into both the sink and the ring before
+        # either closes: the ring stays the sink's tail.
+        stop_heartbeat(_state)
     state, _state = _state, None
     flt, _flight = _flight, None
     if flt is not None:
         flt.close()
     if state is None:
         return
-    stop_heartbeat(state)
     with _lock:
         os.close(state.fd)
 
@@ -213,12 +215,28 @@ def _arm_flight(run_dir):
 
 
 def _finalize_manifest():
-    """Merge the gauges' last values into the manifest: called at shutdown
-    and on every heartbeat, so a killed serving process keeps its final
-    queue depth and p99."""
+    """Merge the kernel build cache's facts and the gauges' last values
+    into the manifest: where the kernels are built (``kernel_build_dir``,
+    in place of the JAX package's ``jax_cache_dir``) and how often this
+    process hit or missed that cache, under the JAX package's
+    ``jax_cache_hits``/``jax_cache_misses``. Called at shutdown and on
+    every heartbeat, so a killed serving process keeps its aggregates and
+    its final queue depth and p99. Reads ``kernels.build`` and ``obs.aot``
+    through ``sys.modules`` only: telemetry never imports either."""
+    fields = {}
+    build = sys.modules.get("flake16_framework_tpu_torch.kernels.build")
+    if build is not None:
+        fields["kernel_build_dir"] = str(build.BUILD_DIR)
+    aot = sys.modules.get("flake16_framework_tpu_torch.obs.aot")
+    if aot is not None:
+        stats = aot.cache_stats()
+        fields["jax_cache_hits"] = int(stats["hits"])
+        fields["jax_cache_misses"] = int(stats["misses"])
     state = _state
     if state is not None and state.gauges:
-        manifest_update(gauges=dict(state.gauges))
+        fields["gauges"] = dict(state.gauges)
+    if fields:
+        manifest_update(**fields)
 
 
 # -- spans --------------------------------------------------------------

@@ -18,12 +18,17 @@ endpoint federates the workers (``register_fleet_sources``). The
 exporter reads collaborator modules via ``sys.modules`` only — metrics
 must never be the thing that initializes CUDA or imports the sweep.
 
-The JAX package's ladder, AOT-dispatch and compile-cache series
+The dispatch census and the compile-cache series keep the JAX
+package's names, so that one dashboard reads both packages' workers:
+``f16_aot_dispatches_total`` and ``f16_aot_compiles_total`` count the
+instrumented entry points' calls and the serving store's graph
+dispatches, and the graph captures and counting passes
+(``obs/aot.dispatch_stats``); ``f16_jax_cache_hits_total`` and
+``f16_jax_cache_misses_total`` count the kernel build cache
+(``obs/aot.cache_stats``). The JAX package's ladder series
 (``f16_ladder_halvings``, ``f16_ladder_cpu_fallback``,
-``f16_ladder_pallas_broken``, ``f16_aot_dispatches_total``,
-``f16_aot_compiles_total``, ``f16_jax_cache_hits_total``,
-``f16_jax_cache_misses_total``) are not exposed: their sources are
-modules the port leaves out on purpose (ROADMAP.md §A).
+``f16_ladder_pallas_broken``) are not exposed: the port leaves the
+degradation ladder out on purpose (ROADMAP.md §A).
 
 ``METRIC_CENSUS`` is a contract: every ``obs.gauge``/``obs.counter_add``
 literal name emitted anywhere in the package is declared here, and the
@@ -142,8 +147,8 @@ def register_process_sources(registry):
     """Contribute the process-wide sources every exporter shares: uptime,
     memory peaks, journal fold lag, and the telemetry counter totals.
     All read collaborators via ``sys.modules``/getattr — never
-    initialize. (The JAX package's ladder, AOT and compile-cache series
-    have no source here; see the module docstring.)"""
+    initialize. (The JAX package's ladder series have no source here;
+    see the module docstring.)"""
     registry.register(
         "f16_uptime_seconds", _run_uptime_s,
         help="Wall seconds since the telemetry run started (or None "
@@ -155,6 +160,25 @@ def register_process_sources(registry):
         "f16_device_mem_peak_mb", core.device_memory_peak_mb,
         help="Peak device memory over local devices, MB (absent where "
              "the backend does not report it).")
+    registry.register(
+        "f16_aot_dispatches_total", lambda: _aot_stat("dispatches"),
+        kind="counter",
+        help="Instrumented entry-point calls and executable-store graph "
+             "dispatches since process start.")
+    registry.register(
+        "f16_aot_compiles_total", lambda: _aot_stat("compiles"),
+        kind="counter",
+        help="Executable-store graph captures and cost-counting passes "
+             "since process start.")
+    registry.register(
+        "f16_jax_cache_hits_total", lambda: _aot_cache_stat("hits"),
+        kind="counter",
+        help="Kernel build-cache hits (a library already built under its "
+             "source hash).")
+    registry.register(
+        "f16_jax_cache_misses_total", lambda: _aot_cache_stat("misses"),
+        kind="counter",
+        help="Kernel build-cache misses (an nvcc run).")
     registry.register(
         "f16_journal_fold_lag_seconds", _journal_fold_lag,
         help="Seconds since the last sweep-journal append in this "
@@ -333,6 +357,20 @@ def _run_uptime_s():
     import time
 
     return round(time.time() - state.t0, 3)
+
+
+def _aot_stat(field):
+    aot = sys.modules.get("flake16_framework_tpu_torch.obs.aot")
+    if aot is None:
+        return None
+    return int(aot.dispatch_stats().get(field, 0))
+
+
+def _aot_cache_stat(field):
+    aot = sys.modules.get("flake16_framework_tpu_torch.obs.aot")
+    if aot is None:
+        return None
+    return int(aot.cache_stats().get(field, 0))
 
 
 def _journal_fold_lag():

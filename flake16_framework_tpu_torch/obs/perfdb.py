@@ -389,11 +389,12 @@ def rows_from_bench(doc, src, round_tag=None):
 def rows_from_run(run_dir):
     """Perfdb rows from one telemetry run dir: per-stage span walls (the
     ``report --attrib`` join) and per-kernel rows, knob-snapshotted from
-    the manifest's env fingerprint. A run of this package has no ``cost``
-    events; its kernel rows carry each kernel's launches on the run
-    (``kernel.hist_cumsum``/``kernel.treeshap_unit``, ``n``). A JAX
-    package run yields the JAX package's rows, from its ``cost``
-    aggregates."""
+    the manifest's env fingerprint. Each entry point's ``cost`` aggregate
+    gives a ``kernel.<span>`` row (flops, bytes, compile_s, n), on a run
+    of either package: the port's cost events come from its counting
+    passes and graph captures (``obs/costs.py``, ``obs/aot.py``). A run of
+    this package also gives each CUDA kernel's launches on the run
+    (``kernel.hist_cumsum``/``kernel.treeshap_unit``, ``n``)."""
     from flake16_framework_tpu_torch.obs import report
 
     manifest, events = report.load_run(run_dir)

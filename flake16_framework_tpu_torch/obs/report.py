@@ -16,14 +16,17 @@ the estimated "compile" wall is ``cold_total - cold_n * warm_mean``
 (clamped at 0; the whole cold total when no warm call exists to
 calibrate against), and execute wall is the remainder of the total. The
 port compiles no program per shape, so on its runs the cold excess is
-first-call cost: the kernels' library load and the allocator's first
-growth.
+first-call cost: the kernels' library load, the allocator's first
+growth and, with telemetry on, the counting pass of each entry point's
+first signature (``obs/costs.py``).
 
 ``--attrib`` joins each config's stage walls to the kernels' launch
 counts, from the fit and explain spans' ``k1_launches``/``k2_launches``
-fields. The port has no ``cost`` events (the JAX package's XLA cost
-analysis has no PyTorch source); a JAX package run's cost events are
-still read.
+fields, and to the ``cost`` events of either package: the port's come
+from ``obs/costs.py``'s counting passes and the serving store's graph
+captures (``obs/aot.py``), the JAX package's from XLA's cost analysis.
+The grower's ``stage_flops`` on them split the fit stage into ``fit.bin``,
+``fit.hist_build``, ``fit.split_scan`` and ``fit.partition``.
 """
 
 import json
@@ -184,7 +187,7 @@ def summarize_attrib(manifest, events):
     ``kernel_launches`` sums the spans' ``k1_launches`` (``hist_cumsum``,
     K1) and ``k2_launches`` (``treeshap_unit``, K2) per config, split over
     a batch span's members like its wall, with the run's totals under
-    ``kernel_launch_totals``. ``cost`` events (JAX package runs only)
+    ``kernel_launch_totals``. ``cost`` events (either package's)
     aggregate by their ``span`` name into ``kernel_costs``; a grower cost
     event's ``stage_flops`` splits each fit wall into grower sub-stages,
     weighted by flops."""
@@ -325,8 +328,9 @@ def render_attrib(attrib, top=15):
         out.append("")
     if kernel_names:
         out.append("kernel launches (hist_cumsum = K1, treeshap_unit = K2) "
-                   "from the fit and explain spans' k1_launches/k2_launches; "
-                   "no cost events: " + "  ".join(
+                   "from the fit and explain spans' k1_launches/k2_launches"
+                   + ("" if attrib["kernel_costs"] else "; no cost events")
+                   + ": " + "  ".join(
                        f"{k}={n:g}" for k, n in
                        attrib["kernel_launch_totals"].items()))
         out.append("")

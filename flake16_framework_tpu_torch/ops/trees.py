@@ -40,6 +40,13 @@ bit.
 Weights are small integers, so every histogram and prefix sum is exact in
 f32 in any order. ``argmax`` takes the first maximum (the lowest boundary,
 the lowest feature), as ``jnp.argmax`` does.
+
+``fit_forest_hist``, ``fit_forest`` and ``predict_proba`` are instrumented
+(``obs/costs.py``) under the JAX package's span names: their dispatches
+are counted, and with telemetry on the first call of each signature emits
+a ``cost`` event; the histogram grower's carries the analytic per-stage
+flop split (``fit_stage_flops``) that ``report --attrib`` divides the fit
+wall by.
 """
 
 import os
@@ -50,6 +57,7 @@ import torch
 from flake16_framework_tpu_torch import rng
 from flake16_framework_tpu_torch.constants import HIST_BINS
 from flake16_framework_tpu_torch.kernels.hist import cum_hists, max_window
+from flake16_framework_tpu_torch.obs import costs
 
 # Node-batch width of the BFS step per device type (results-neutral),
 # unless an operator pins it with the JAX package's variables: on the card
@@ -79,6 +87,38 @@ def default_node_batch(device_type, env=None):
         raise ValueError(f"{name}={raw!r}: the window width must be a whole "
                          f"number from 1 to {limit}")
     return width
+
+
+def fit_stage_flops(*, n, n_feat, n_bins, n_trees, n_nodes, max_nodes,
+                    node_batch=None, device_type="cuda"):
+    """Analytic per-stage flop model of one hist-grower fit (the JAX
+    package's, host arithmetic): {"bin", "hist_build", "split_scan",
+    "partition"} flop counts for ``n_trees`` growths of ``n_nodes``-node
+    trees, each term its leading shape factor. ``report --attrib`` splits
+    the measured fit wall in proportion to these counts.
+
+    - bin: one-time quantile binning, n x F x B one-hot expansion;
+    - hist_build: per window step, the [n, bw] x [n, F*B] one-hot
+      contraction (2 flops per MAC);
+    - split_scan: per step, cumsum + gini proxy + argmax/extract over
+      the [F, bw, B] histogram space (~12 passes);
+    - partition: per step, the O(n x bw) membership one-hot plus
+      refinement reduces, and O(n) routing gathers.
+
+    ``node_batch`` (the window width bw) defaults to the grower's own,
+    ``default_node_batch(device_type)``."""
+    if node_batch is None:
+        node_batch = default_node_batch(device_type)
+    bw = max(1, min(node_batch, max_nodes))
+    steps = max(1, -(-int(n_nodes) // bw))
+    per_tree = {
+        "bin": float(n * n_feat * n_bins) / max(1, n_trees),  # shared once
+        "hist_build": float(steps * 2 * n * bw * n_feat * n_bins),
+        "split_scan": float(steps * 12 * n_feat * bw * n_bins),
+        "partition": float(steps * (4 * n * bw + 6 * n)),
+    }
+    return {k: round(v * n_trees, 1) for k, v in per_tree.items()}
+
 
 # sklearn's FEATURE_THRESHOLD: two values closer than this are "equal" for
 # the exact grower's split candidates.
@@ -900,3 +940,27 @@ def predict_batch(forest, x):
                     for f in forest[:-1]), forest.max_depth)
     p = _tree_mean(_leaf_probs(flat, x).view(n_fold, n_tree, x.shape[0], 2))
     return p[..., 1] > p[..., 0]
+
+
+# Cost attribution (obs/costs.py): the grower and predict entry points,
+# under the JAX package's span names. The histogram grower's events carry
+# the analytic per-stage flop split (``stage_flops``).
+
+
+def _fit_hist_cost_fields(args, kwargs):
+    n, f = args[0].shape
+    max_nodes = kwargs.get("max_nodes") or 2 * n
+    return {"stage_flops": fit_stage_flops(
+        n=n, n_feat=f, n_bins=HIST_BINS, n_trees=kwargs["n_trees"],
+        n_nodes=max_nodes, max_nodes=max_nodes,
+        device_type=args[0].device.type)}
+
+
+_FIT_STATIC = ("n_trees", "bootstrap", "random_splits", "sqrt_features",
+               "max_depth", "max_nodes", "tree_chunk")
+fit_forest_hist = costs.instrument(fit_forest_hist, "trees.fit_forest_hist",
+                                   static_argnames=_FIT_STATIC,
+                                   cost_fields=_fit_hist_cost_fields)
+fit_forest = costs.instrument(fit_forest, "trees.fit_forest",
+                              static_argnames=_FIT_STATIC)
+predict_proba = costs.instrument(predict_proba, "trees.predict_proba")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from flake16_framework_tpu_torch.kernels.treeshap_unit import unit_shap
+from flake16_framework_tpu_torch.obs import costs
 from flake16_framework_tpu_torch.ops.trees import trim_nodes
 
 # Finite interval sentinels of the compact rows (every real f32 input is
@@ -504,3 +505,18 @@ def forest_shap_interactions(forest, x, *, rows=None):
     # multiply-add.
     diag = phi - off.sum(2)
     return off + diag[..., None] * torch.eye(n_feat, device=x.device)
+
+
+# Cost attribution (obs/costs.py): the explain entry points, under the JAX
+# package's span names. ``shap.unit_pallas`` is the unit (K2 is the port of
+# the JAX package's Pallas unit kernel), ``shap.pallas_graph`` the
+# single-bucket program.
+compact_paths = costs.instrument(compact_paths, "shap.compact",
+                                 static_argnames=("depth", "n_features"))
+unit_shap = costs.instrument(unit_shap, "shap.unit_pallas")
+graph_shap = costs.instrument(graph_shap, "shap.pallas_graph")
+forest_shap_interventional = costs.instrument(
+    forest_shap_interventional, "shap.interventional",
+    static_argnames=("rows",))
+forest_shap_interactions = costs.instrument(
+    forest_shap_interactions, "shap.interactions", static_argnames=("rows",))

@@ -63,6 +63,12 @@ the budget before the first plan dispatches, and refuses the whole grid
 with ``PlanOverBudget`` when any plan exceeds it, as the JAX package's
 pre-flight does.
 
+The entry points (``_family_fns``: a fold's fit and score, the fused
+config, a plan's members, a card's shard of a config batch) are
+instrumented under the JAX package's names (``obs/costs.py``): their
+dispatches are counted, and with telemetry on each signature's first call
+emits a ``cost`` event, the fits with the grower's stage flops.
+
 With telemetry on (``obs``), the sweep emits the JAX package's spans and
 counters: ``scores.fit`` and ``scores.score`` (one of each a fold here,
 with ``fold=``; one a config there), ``scores.config`` (fused),
@@ -84,9 +90,10 @@ import numpy as np
 import torch
 
 from flake16_framework_tpu_torch import config as cfg, obs, rng
+from flake16_framework_tpu_torch.constants import HIST_BINS
 from flake16_framework_tpu_torch.device import resolve, resolve_devices
 from flake16_framework_tpu_torch.kernels.build import launch_counts
-from flake16_framework_tpu_torch.obs import perfdb
+from flake16_framework_tpu_torch.obs import costs, perfdb
 from flake16_framework_tpu_torch.ops import trees
 from flake16_framework_tpu_torch.ops.metrics import (
     confusion_by_fold, confusion_by_project, format_scores,
@@ -114,6 +121,43 @@ SEED = 0  # the config keys' root seed, as the reference's
 # batch; LOPO's 26 folds in three): 11.7 GB (RF) and 12.7 GB (ET) peak
 # allocated on an H100 (``chip_smoke.py``); about 8 GB for 200 exact ones.
 TREES_IN_FLIGHT = {"hist": 1000, "exact": 200}
+
+
+def _fit_cost_fields(spec, *, n, n_feat, cap, n_folds, grower,
+                     device_type):
+    """The ``cost_fields`` hook of the fit-carrying entry points (the
+    JAX package's): stamps the grower's analytic stage flops
+    (``trees.fit_stage_flops``) for the config's fit, every fold, on the
+    entry's ``cost`` event, which lets ``report --attrib`` divide the
+    measured fit wall into bin / hist_build / split_scan / partition
+    sub-stages. None for the exact grower (no sub-stage model), which
+    includes the single Decision Tree. The port has no chunked fit
+    dispatch, so a fit grows ``spec.n_trees`` trees a fold."""
+    g = grower or os.environ.get("F16_ENSEMBLE_GROWER", "hist")
+    if spec.n_trees <= 1 or g != "hist":
+        return None
+    cap_r = 2 * n if cap is None else cap
+    max_nodes = 2 * cap_r
+
+    def fields(args, kwargs):
+        return {"stage_flops": trees.fit_stage_flops(
+            n=cap_r, n_feat=n_feat, n_bins=HIST_BINS,
+            n_trees=spec.n_trees * n_folds, n_nodes=max_nodes,
+            max_nodes=max_nodes, device_type=device_type)}
+
+    return fields
+
+
+def _plan_key(args, kwargs):
+    """A plan's dispatch key: its padded batch and the generic key of the
+    rest (one family's plans of one width share a signature, as the JAX
+    package's plan program does)."""
+    return (args[0].batch, costs.signature(args[1:], kwargs))
+
+
+def _shard_key(args, kwargs):
+    """A card's shard's dispatch key: its width and the card's type."""
+    return (len(args[0]), args[1].device.type)
 
 
 def batch_bounds(n_trees, use_hist, dispatch_trees=None,
@@ -373,6 +417,7 @@ class SweepEngine:
         self.retries = []
         self.fused_configs = set()
         self.amortized_configs = set()
+        self._fns = {}  # family -> instrumented entry points
 
     def _spec(self, model_name):
         spec = cfg.MODELS[model_name]
@@ -431,7 +476,8 @@ class SweepEngine:
                           counts=launch_counts, mode="fused", stage="fused",
                           config=name):
                 t0 = time.time()
-                counts = self._fit_count_folds(config_keys)
+                counts = self._family_fns(config_keys)["config"](
+                    config_keys)
                 wall = time.time() - t0
             result = self._result(counts.sum(0, dtype=np.int32),
                                   wall / self.n_folds, 0.0)
@@ -460,6 +506,7 @@ class SweepEngine:
         # then journaled, so a kill loses at most the fold in flight. The
         # first missing fold's fit also prepares what the folds share.
         p = None
+        fns = self._family_fns(config_keys)
         for f in range(self.n_folds):
             if f in counts_by_fold:
                 continue
@@ -469,17 +516,8 @@ class SweepEngine:
                 t0 = time.time()
                 if p is None:
                     p = self._prepare(config_keys)
-                kb, kf = rng.split(fold_keys[f]).unbind(0)
-                xs, ys, ws = resample(p["xp"], p["y"], train_mask[f],
-                                      p["bal_code"], kb, p["cap"])
-                if p["use_hist"]:
-                    forest = trees.fit_forest_hist(
-                        xs, ys, ws, kf, edges=p["edges"],
-                        tree_chunk=tree_chunk, **p["fit_kw"])
-                else:
-                    forest = trees.fit_forest(xs, ys, ws, kf,
-                                              tree_chunk=tree_chunk,
-                                              **p["fit_kw"])
+                forest = fns["fit"](p, fold_keys[f], train_mask[f],
+                                    tree_chunk)
                 if self.device.type == "cuda":
                     # The fold's train clock stops after its fit.
                     torch.cuda.synchronize(  # f16lint: disable=J402
@@ -487,12 +525,8 @@ class SweepEngine:
                 t1 = time.time()
             with obs.span("scores.score", key=(*family, "staged"),
                           stage="predict", config=name, fold=f):
-                # One host read a fold: the fold is journaled before the
-                # next one runs (the staged path's resume granularity).
-                counts_by_fold[f] = confusion_by_project(  # f16lint: disable=J402
-                    p["y"], trees.predict(forest, p["xp"])[None],
-                    test_mask[f:f + 1], self.project_ids,
-                    len(self.project_names)).cpu().numpy()
+                counts_by_fold[f] = fns["score"](p, forest,
+                                                 test_mask[f:f + 1])
                 t_train += t1 - t0
                 t_test += time.time() - t1
             if journal is not None:
@@ -506,6 +540,76 @@ class SweepEngine:
         if journal is not None:
             journal.record_config(config_keys, result)
         return result
+
+    def _family_fns(self, config_keys):
+        """The family's instrumented entry points (``obs/costs.py``), made
+        once a family as the JAX package's ``make_cv_fns``, under its
+        span names: ``scores.fit`` (one fold's resample and fit),
+        ``scores.score`` (one fold's predict and counts), ``scores.config``
+        (the fused config), ``scores.plan_batch`` (a plan's members), and
+        a card's shard of a config batch: ``scores.fit_batch``,
+        ``scores.score_batch`` (staged) and ``scores.config_batch``
+        (fused). The fit-carrying ones stamp the grower's stage flops on
+        their ``cost`` events (``_fit_cost_fields``)."""
+        family = (config_keys[1], config_keys[4])
+        fns = self._fns.get(family)
+        if fns is None:
+            def fit_count_groups(configs, card):
+                return self._count_groups(configs, card,
+                                          *self._fit_groups(configs, card))
+
+            fields = _fit_cost_fields(
+                self._spec(family[1]), n=self.features.shape[0],
+                n_feat=len(cfg.FEATURE_SETS[family[0]]), cap=None,
+                n_folds=self.n_folds, grower=self.grower,
+                device_type=self.device.type)
+            fns = self._fns[family] = {
+                "fit": costs.instrument(self._fit_fold, "scores.fit",
+                                        cost_fields=fields),
+                "score": costs.instrument(self._score_fold,
+                                          "scores.score"),
+                "config": costs.instrument(self._fit_count_folds,
+                                           "scores.config",
+                                           cost_fields=fields),
+                "plan": costs.instrument(self._plan_members,
+                                         "scores.plan_batch",
+                                         cost_fields=fields,
+                                         key=_plan_key),
+                "fit_batch": costs.instrument(self._fit_groups,
+                                              "scores.fit_batch",
+                                              cost_fields=fields,
+                                              key=_shard_key),
+                "score_batch": costs.instrument(self._count_groups,
+                                                "scores.score_batch",
+                                                key=_shard_key),
+                "config_batch": costs.instrument(fit_count_groups,
+                                                 "scores.config_batch",
+                                                 cost_fields=fields,
+                                                 key=_shard_key),
+            }
+        return fns
+
+    def _fit_fold(self, p, fold_key, train_mask, tree_chunk):
+        """One fold of the staged path: resample the config's prepared
+        matrix ``p`` (``_prepare``) under the fold's training mask, then
+        fit the fold's forest."""
+        kb, kf = rng.split(fold_key).unbind(0)
+        xs, ys, ws = resample(p["xp"], p["y"], train_mask, p["bal_code"],
+                              kb, p["cap"])
+        if p["use_hist"]:
+            return trees.fit_forest_hist(xs, ys, ws, kf, edges=p["edges"],
+                                         tree_chunk=tree_chunk,
+                                         **p["fit_kw"])
+        return trees.fit_forest(xs, ys, ws, kf, tree_chunk=tree_chunk,
+                                **p["fit_kw"])
+
+    def _score_fold(self, p, forest, test_mask):
+        """One fold's per-project counts, int32 [1, P, 3] on the host: one
+        host read a fold, so that the fold is journaled before the next
+        one runs (the staged path's resume granularity)."""
+        return confusion_by_project(
+            p["y"], trees.predict(forest, p["xp"])[None], test_mask,
+            self.project_ids, len(self.project_names)).cpu().numpy()
 
     def _count_done(self, n_configs, n_trees):
         """Throughput counters after a config (or a plan's members)
@@ -640,14 +744,19 @@ class SweepEngine:
         per_fold = journal is not None and not self.fused
         fit_done = []
 
-        def counts_of(card, shard, fitted):
-            counts = torch.stack(self._count_groups(shard, card, *fitted))
+        fns = self._family_fns(config_batch[0])
+
+        def host_counts(counts):
+            counts = torch.stack(counts)
             if not per_fold:
                 counts = counts.sum(1, dtype=torch.int32)
             return counts.cpu().numpy()
 
+        def counts_of(card, shard, fitted):
+            return host_counts(fns["score_batch"](shard, card, *fitted))
+
         def fit(card, shard):
-            fitted = self._fit_groups(shard, card)
+            fitted = fns["fit_batch"](shard, card)
             if card.device.type == "cuda":  # the batch's train clock
                 torch.cuda.synchronize(card.device)
             return fitted
@@ -658,8 +767,8 @@ class SweepEngine:
                 with obs.span("scores.config_batch", counts=launch_counts,
                               mode="fused", stage="fused", **span_kw):
                     got = _on_cards([(card, [
-                        lambda card=card, shard=shard: counts_of(
-                            card, shard, self._fit_groups(shard, card))])
+                        lambda card=card, shard=shard: host_counts(
+                            fns["config_batch"](shard, card))])
                         for card, shard in shards])
             else:
                 with obs.span("scores.fit_batch", counts=launch_counts,
@@ -785,16 +894,8 @@ class SweepEngine:
                       configs=["/".join(k) for k in plan.configs]):
             with obs.xprof_trace(f"plan-{model_name.replace(' ', '_')}",
                                  self.device):
-                if n_cards > 1:
-                    own, ran_plan, wall = self._run_plan_cards(
-                        plan, guard, grow_kw)
-                else:
-                    own = [self._run_guarded(
-                        guard, keys, lambda keys=keys: self._run_member(
-                            keys, grow_kw))
-                        for keys in plan.configs]
-                    ran_plan = [r is not None for r in own]
-                    wall = None
+                own, ran_plan, wall = self._family_fns(
+                    plan.configs[0])["plan"](plan, guard, grow_kw, n_cards)
         ran = [(k, r) for k, r, p in zip(plan.configs, own, ran_plan)
                if p and r is not None]
         self._count_done(len(ran), self._spec(model_name).n_trees)
@@ -807,6 +908,16 @@ class SweepEngine:
             self.amortized_configs.update(k for k, _ in ran)
         return [[wall, 0.0, *r[2:]] if p else r
                 for r, p in zip(own, ran_plan)]
+
+    def _plan_members(self, plan, guard, grow_kw, n_cards):
+        """``run_plan``'s members: (results, whether each member's result
+        is the plan's, the plan's wall or None)."""
+        if n_cards > 1:
+            return self._run_plan_cards(plan, guard, grow_kw)
+        own = [self._run_guarded(
+            guard, keys, lambda keys=keys: self._run_member(keys, grow_kw))
+            for keys in plan.configs]
+        return own, [r is not None for r in own], None
 
     def _run_plan_cards(self, plan, guard, grow_kw):
         """``plan``'s members split over the cards: card s runs the real

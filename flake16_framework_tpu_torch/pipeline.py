@@ -31,6 +31,7 @@ from flake16_framework_tpu_torch.constants import (
 from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
 from flake16_framework_tpu_torch.device import default_devices, resolve
 from flake16_framework_tpu_torch.kernels.build import launch_counts
+from flake16_framework_tpu_torch.obs import costs
 from flake16_framework_tpu_torch.ops import trees, treeshap
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
@@ -286,6 +287,19 @@ def fit_shap_model(config_keys, feats, labels_raw, *, max_depth=48,
     return xp, mu, wmat, forest
 
 
+def _run_shap_plan(plan, feats, labels, base, member, *, mode, n_explain,
+                   n_background, max_depth, tree_overrides, device):
+    """A SHAP plan's members, each through ``shap_for_config`` with the
+    key ``fold_in(base, its grid index)``; ``member(keys, result)`` takes
+    each result."""
+    for keys, index in zip(plan.configs, plan.indices):
+        member(keys, shap_for_config(
+            keys, feats, labels, mode=mode, n_explain=n_explain,
+            n_background=n_background, key=rng.fold_in(base, index),
+            max_depth=max_depth, tree_overrides=tree_overrides,
+            device=device))
+
+
 def shap_for_config(config_keys, feats, labels_raw, *, mode="path",
                     n_explain=None, n_background=0, key=None, max_depth=48,
                     tree_overrides=None, device=None):
@@ -322,6 +336,22 @@ def shap_for_config(config_keys, feats, labels_raw, *, mode="path",
     values = values.cpu().numpy()
     return {"values": values, "forest": forest, "x": xp, "fit_s": fit_s,
             "explain_s": time.time() - t0}
+
+
+def _shap_plan_key(args, kwargs):
+    """A SHAP plan's dispatch key: its family and padded batch, and the
+    mode, counts and depth."""
+    return (args[0].family, args[0].batch, tuple(
+        kwargs[k] for k in ("mode", "n_explain", "n_background",
+                            "max_depth")))
+
+
+# Cost attribution (obs/costs.py): the SHAP stage's fit chain (the JAX
+# package's fused fit program) and a SHAP plan's members (its plan
+# program), under the JAX package's span names.
+fit_shap_model = costs.instrument(fit_shap_model, "shap.fused_fit")
+_shap_plan = costs.instrument(_run_shap_plan, "shap.plan_batch",
+                              key=_shap_plan_key)
 
 
 def write_shap(tests_file=TESTS_FILE, out_file=SHAP_FILE, *, max_depth=48,
@@ -397,18 +427,18 @@ def shap_grid(tests_file=TESTS_FILE, out_file=None, *, mode="path",
             with obs.span("shap.plan", key=(fs_name, model_name, mode),
                           counts=launch_counts, stage="shap",
                           batch=len(plan.configs), pad=plan.pad):
-                for keys, index in zip(plan.configs, plan.indices):
-                    res = shap_for_config(
-                        keys, feats, labels, mode=mode, n_explain=n_explain,
-                        n_background=n_background,
-                        key=rng.fold_in(base, index), max_depth=max_depth,
-                        tree_overrides=tree_overrides, device=device)
+                def member(keys, res):
                     values["/".join(keys)] = res["values"]
                     progress_out.write(
                         f"[{len(values)}/{total}] {', '.join(keys)} "
                         f"(fit {res['fit_s']:.3f} s, explain "
                         f"{res['explain_s']:.3f} s; "
                         f"{time.time() - t0:.1f}s elapsed)\n")
+
+                _shap_plan(plan, feats, labels, base, member, mode=mode,
+                           n_explain=n_explain, n_background=n_background,
+                           max_depth=max_depth,
+                           tree_overrides=tree_overrides, device=device)
             obs.counter_add("shap_configs", len(plan.configs))
     if out_file is not None:
         _dump({"mode": mode, "n_explain": n_explain,

@@ -23,7 +23,10 @@ import tempfile
 import torch
 
 from chip_smoke import (F32_OPS_PER_S, N_PROJECTS, N_TESTS, SHAP_TOL,
-                        _cuda_ms, one_counts, unit_ops)
+                        _cuda_ms)
+from flake16_framework_tpu_torch.kernels.treeshap_unit import (
+    one_counts, unit_ops,
+)
 
 CHUNKS = (64, 128, 256, 512, 1024)
 

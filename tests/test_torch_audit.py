@@ -307,7 +307,7 @@ def test_audit_subgrid_is_clean(audit):
     for name in ("shap.interventional", "shap.interactions"):
         assert set(envs[name]["host_reads"]) == {
             f"flake16_framework_tpu_torch/ops/treeshap.py:{line} "
-            "(bucket_inputs)" for line in (176, 182, 183)}
+            "(bucket_inputs)" for line in (177, 183, 184)}
 
 
 def test_documents_cross_validate_and_ingest(audit, tmp_path):

@@ -525,3 +525,115 @@ def test_fleet_on_the_card_launches_k2_in_its_workers(tmp_path):
         want = svc.score(mid, feats[:8], kind="shap", timeout=120)
     assert got.dtype == np.float32 and got.shape == want.shape
     assert got.tobytes() == want.tobytes()
+
+
+def _graph_registry(tmp_path):
+    """A registry of two small models (ET on K1, a Decision Tree) and the
+    raw feature matrix."""
+    from flake16_framework_tpu_torch.serve import ModelRegistry
+    from flake16_framework_tpu_torch.utils.synth import make_dataset
+
+    feats, labels, _ = make_dataset(n_tests=400, n_projects=6, seed=5)
+    registry = ModelRegistry(str(tmp_path / "registry"))
+    for keys in (("NOD", "Flake16", "None", "SMOTE Tomek", "Extra Trees"),
+                 ("OD", "Flake16", "Scaling", "SMOTE", "Decision Tree")):
+        registry.fit_and_register(keys, feats, labels, max_depth=12,
+                                  tree_overrides={"Extra Trees": 8})
+    return registry, feats
+
+
+def _eager(store, model, kind, x):
+    """The cache's eager body on the store's prepared model."""
+    fn, args, _ = store.audit_handles(model, x)[f"serve.{kind}"]
+    return fn(*args)
+
+
+@pytest.mark.cuda
+def test_serve_graph_replays_equal_eager_bodies(tmp_path):
+    """The serving store's CUDA graphs (``obs/aot.py``): warm captures one
+    graph a (model, kind, bucket) (``compiles`` grows by their number);
+    each replay equals the eager body on the same batch, predict bitwise
+    and SHAP within 1e-5 * max|eager| + 1e-7; a SHAP replay counts one K2
+    launch and a predict replay none; a reload drops the model's graphs
+    and the next call captures again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from flake16_framework_tpu_torch.obs import aot
+    from flake16_framework_tpu_torch.serve.store import KINDS, ExecutableStore
+
+    registry, feats = _graph_registry(tmp_path)
+    store = ExecutableStore(registry)
+    buckets = (8, 32)
+    c0 = aot.dispatch_stats()["compiles"]
+    for model in registry.models():
+        store.warm(model, buckets)
+    assert aot.dispatch_stats()["compiles"] - c0 == \
+        len(registry) * len(KINDS) * len(buckets)
+    rs = np.random.RandomState(0)
+    for model in registry.models():
+        for bucket in buckets:
+            rows = rs.choice(len(feats), bucket)
+            x = np.ascontiguousarray(feats[rows][:, list(model.cols)],
+                                     dtype=np.float32)
+            for kind in KINDS:
+                k2 = treeshap_unit.unit_shap.launches
+                got = store.call(model, kind, x)
+                torch.cuda.synchronize()
+                assert treeshap_unit.unit_shap.launches - k2 == \
+                    (kind == "shap")
+                want = _eager(store, model, kind, x)
+                if kind == "predict":
+                    assert torch.equal(got, want)
+                else:
+                    err = float((got - want).abs().max())
+                    assert err <= 1e-5 * float(want.abs().max()) + 1e-7
+    model = registry.models()[0]
+    registry.register(type(model)(**{k: getattr(model, k)
+                                     for k in model.__slots__}),
+                      persist=False)
+    reloaded = registry.get(model.model_id)
+    assert reloaded is not model
+    c1 = aot.dispatch_stats()["compiles"]
+    x = np.zeros((8, len(model.cols)), dtype=np.float32)
+    store.call(reloaded, "shap", x)
+    assert aot.dispatch_stats()["compiles"] - c1 == 1
+
+
+@pytest.mark.cuda
+def test_serve_graph_concurrent_replays(tmp_path):
+    """Two threads replaying one (model, kind, bucket) graph with
+    different batches each get their own answer (the graph's lock holds
+    its static buffers for one caller at a time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import threading
+
+    from flake16_framework_tpu_torch.serve.store import ExecutableStore
+
+    registry, feats = _graph_registry(tmp_path)
+    store = ExecutableStore(registry)
+    model = registry.models()[0]
+    store.warm(model, (32,))
+    xs = [np.ascontiguousarray(feats[i * 32:(i + 1) * 32][:, list(model.cols)],
+                               dtype=np.float32) for i in range(2)]
+    want = [_eager(store, model, kind, x).cpu()
+            for x in xs for kind in ("predict", "shap")]
+    got = {}
+
+    def run(i):
+        torch.cuda.set_device(store.device)
+        for _ in range(50):
+            out = [store.call(model, kind, xs[i]).cpu()
+                   for kind in ("predict", "shap")]
+        got[i] = out
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in range(2):
+        assert torch.equal(got[i][0], want[2 * i])
+        err = float((got[i][1] - want[2 * i + 1]).abs().max())
+        assert err <= 1e-5 * float(want[2 * i + 1].abs().max()) + 1e-7
+    assert not torch.equal(got[0][0], got[1][0])

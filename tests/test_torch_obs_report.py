@@ -7,12 +7,13 @@ Each package's ``report --json`` document (``summarize``) on the other
 package's run equals that package's own on it, and validates under both
 packages' ``validate_report``; each package's ``trace`` gives the same
 Chrome-trace events on either run. ``--attrib`` ranks the port run's
-configs by wall, with their stages; in place of the JAX package's kernel
-costs (XLA cost events, which the port does not have) it joins the spans'
-kernel launch counts. The end-to-end test follows the JAX package's
-``tests/test_obs.py::test_scores_run_is_reportable_end_to_end``, less its
-``cost``-event and ``jax_cache_*`` assertions, which have no counterpart
-in the port."""
+configs by wall, with their stages, the fit split into the grower's
+sub-stages by the port's own ``cost`` events (``obs/costs.py``), and
+joins the spans' kernel launch counts. The end-to-end test follows the
+JAX package's ``tests/test_obs.py::test_scores_run_is_reportable_end_to_
+end``; its ``jax_cache_*`` manifest fields count the port's kernel build
+cache, and the port's manifest names ``kernel_build_dir`` where the JAX
+package's names ``jax_cache_dir``."""
 
 import gzip
 import io
@@ -103,10 +104,21 @@ def test_attrib_ranks_the_port_run(runs):
     assert list(at["configs"]) == sorted(
         at["configs"], key=lambda c: (-at["configs"][c]["total_s"], c))
     assert set(at["configs"]) == {"/".join(k) for k in CONFIGS}
+    sub = ("fit.bin", "fit.hist_build", "fit.split_scan", "fit.partition")
     for st in at["configs"].values():
-        assert st["fit"] > 0 and st["predict"] > 0 and st["total_s"] > 0
-    assert set(at["stages"]) == {"fit", "predict"}
-    assert at["kernel_costs"] == {}
+        # (fit.bin's share, one binning against every step, may round
+        # to 0 s at the report's 4 decimals)
+        assert all(st[s] >= 0 for s in sub) and st["fit.hist_build"] > 0
+        assert st["predict"] > 0 and st["total_s"] > 0
+    assert set(at["stages"]) == {*sub, "predict"}
+    # one cost event a family and entry: the Random Forest's fit carries
+    # the stage flops that split every config's fit wall. FlopCounterMode
+    # counts contractions only: the plain K1's einsum on the CPU, no op of
+    # the exact grower or of predict.
+    assert set(at["kernel_costs"]) == {"scores.fit", "scores.score"}
+    assert all(k["n"] == 2 and k["bytes"] > 0
+               for k in at["kernel_costs"].values())
+    assert at["kernel_costs"]["scores.fit"]["flops"] > 0
     assert at["kernel_launches"] == {} and at["kernel_launch_totals"] == {}
     text = treport.render_attrib(at)
     assert "per-config stage attribution" in text
@@ -162,6 +174,16 @@ def test_scores_run_is_reportable_end_to_end(runs, tmp_path):
     assert {"scores.run_grid", "scores.fit", "scores.score"} <= set(
         rep["spans"])
     assert rep["gauges"]["host_rss_peak_mb"]["peak"] > 0
+    # cost events: every entry point's first signature reported nonzero
+    # flops and a build wall (obs.costs.instrument's counting pass)
+    costs = [e for e in events if e["kind"] == "cost"]
+    assert costs, "no cost events: the instrumented dispatch never fired"
+    assert any(e["flops"] > 0 for e in costs), costs
+    assert all(e["compile_s"] >= 0 and e["bytes"] >= 0 for e in costs)
+    assert any(e["span"].startswith("scores.") for e in costs)
+    assert manifest["kernel_build_dir"].endswith("_build")
+    assert manifest["jax_cache_hits"] >= 0
+    assert manifest["jax_cache_misses"] >= 0
     text = treport.render(rep)
     assert "compile_s" in text and "execute_s" in text
     assert "torch_version=" in text

@@ -22,6 +22,7 @@ import pickle
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from flake16_framework_tpu import obs as jobs
@@ -234,18 +235,24 @@ def test_rows_from_a_jax_run_equal_jax(tmp_path):
 def test_rows_from_a_port_run_carry_launches(tmp_path):
     """A port run's kernel rows come from its spans' launch counts: one
     ``kernel.hist_cumsum`` and one ``kernel.treeshap_unit`` row, ``n``
-    the launches, backend the manifest's device type."""
+    the launches, backend the manifest's device type; and from its
+    entry points' ``cost`` events (``obs/costs.py``): one
+    ``kernel.<span>`` row each, as from a JAX package run."""
+    from flake16_framework_tpu_torch.obs import costs
+
     counts = {"k1_launches": 0, "k2_launches": 0}
 
     def launches():
         return dict(counts)
 
+    fit = costs.instrument(lambda x: x @ x.T, "scores.fit")
     run_dir = tobs.configure(root=str(tmp_path), heartbeat_s=0)
     try:
         tobs.manifest_update(backend="cuda")
         for fold in range(3):
             with tobs.span("scores.fit", key="rf", counts=launches,
                            stage="fit", config="A", fold=fold):
+                fit(torch.ones((4, 8)))
                 counts["k1_launches"] += 30 + fold
         with tobs.span("shap.config", key="et", counts=launches,
                        stage="shap", config="B"):
@@ -258,7 +265,13 @@ def test_rows_from_a_port_run_carry_launches(tmp_path):
     assert rows["kernel.treeshap_unit"]["metrics"] == {"n": 4.0}
     assert {r["backend"] for r in rows.values()} == {"cuda"}
     assert set(rows["stage.fit"]["metrics"]) == {"wall_s"}
-    # the JAX package reads the same run (no cost events: no kernel rows)
+    # one counting pass (the first fold's signature): 2 * 4 * 8 * 4 flops;
+    # bytes of every aten op's operands and output: the transpose (128 B
+    # in, 128 B out) and the product (two 128 B operands, 64 B out)
+    assert rows["kernel.scores.fit"]["metrics"] == {
+        "flops": 256.0, "bytes": 576.0, "compile_s": 0.0, "n": 1.0}
+    # the JAX package reads the same run: the same cost row, and no
+    # launch rows (the JAX package's spans carry no launch counts)
     jrows = {r["kernel"] for r in jperfdb.rows_from_run(run_dir)}
     assert jrows == set(rows) - {"kernel.hist_cumsum",
                                  "kernel.treeshap_unit"}
