@@ -15,6 +15,30 @@ against the CPU's and profiled alone, for its launches a level. The
 first ensemble config and the first Decision Tree config then run once
 more under the profiler, for the kernels' shares of device time.
 
+``model_arms`` runs the JAX package's model-changing arms at full width
+(100 trees, depth 48), each through ``SweepEngine.run_config`` under its
+``F16_*`` variable on one config of the family it applies to: the RF
+scores config at 32 and 48 bins (``F16_HIST_BINS``), under
+``F16_HIST_REFINE=edge`` and ``F16_FEATURE_QUOTA=sklearn``; the ET scores
+config under ``F16_ET_DRAW=rank`` and ``F16_PCA_IMPL=eigh``; and the
+Decision Tree ``NOD/Flake16/None/None`` under ``F16_FEATURE_QUOTA=
+sklearn`` (all features are a single tree's quota, so its counts must
+equal its default's). Each arm prints its F1 beside the default's, K1's
+launches and the wall; fold 0's forest of each arm, from the sweep's
+own tensors at 2 trees, must be bitwise equal on the card and on the
+CPU; K1 is held bitwise against its plain version on every real BFS
+step of fold 0's fit at 32 and 48 bins and on synthetic full windows at
+128 and 256 bins (113 and 56 nodes, the widest its shared memory
+holds); the eigh arm's (FP, FN, TP) must stay within 6 samples of svd's
+(the JAX package's bound). ``parity_full`` runs the port's sklearn
+parity oracle (``perf/parity.py``) at its full tier in this process: N
+= 4000, 100 trees, 6 seeds of the RF and ET probe configs and one of the
+deterministic Decision Tree, against the committed
+``parity_sklearn_n4000_t100.json``. The cache must validate, every seed
+must run and RF and ET must launch K1; each config's delta, SE and +/-0.01
+verdict are printed with the card's name and power limit, and a verdict
+outside the tolerance is a finding this script reports, not a failure.
+
 The ``telemetry_path`` phase runs the scores path's RF config and the
 ``shap`` verb on the paper configs once more, in a child process with
 telemetry on (``F16_TELEMETRY``) and ``profile=``: its scores and SHAP
@@ -132,8 +156,9 @@ database under the phase's temporary directory. ``tune --dry-run`` must
 show the field on ``cuda`` for each of the three ensemble families of the
 probe configs: the default width and 64 (the port registers no width
 above K1's shared-memory window, so the JAX package's 256 is not in
-it). ``tune --n 4000 --trees 100 --family 'Flake16/Random Forest'`` then
-probes the first family, each candidate a child process running the
+it), then 32 and 48 bins, which ``--no-parity-knobs`` leaves out. ``tune
+--n 4000 --trees 100 --family 'Flake16/Random Forest'
+--no-parity-knobs`` then probes the first family's widths, each candidate a child process running the
 family's probe configs as ``scores planner`` does (K1 at each width):
 every probe must exit 0 with a finite wall (a failed probe fails the
 phase, it does not lose), and its line carries the K1 launches of its
@@ -149,8 +174,10 @@ one such edge checked.
 
 ``audit_path`` follows ``tune_lint``, in a temporary directory with its
 own performance database. ``python -m flake16_framework_tpu_torch audit
---json`` runs as a child process with a time limit, on ``cuda`` at the
-audit's defaults (the whole grid, n = 120, 2 trees, depth 8, 16 explained):
+--json --per-family 2`` runs as a child process with a time limit, on
+``cuda`` at the audit's defaults (n = 120, 2 trees, depth 8, 16
+explained) over the first 2 configs of each family (12 of the grid's
+216; every plan of the census still runs):
 every real entry point under the recorder (``analysis/ir.py``): the plan
 executors (``scores planner``'s ``run_grid`` and ``shap grid`` in each
 mode), the serving entries and the SHAP engines. It must exit 0 with no
@@ -158,9 +185,9 @@ finding, the static census must equal the plan windows the executor
 opened in both arms, K1 must launch in every hist-family plan entry and
 in none of the Decision Tree scores entries, K2 in the path-mode SHAP
 entries, ``shap.path`` and ``serve.shap``, and each entry's recorded peak
-must be at most the allocator's own peak over its window. ``lint --ir``
-(the same audit folded into the lint) runs as a second child, started
-with the first, and must exit 0. The audit's document then feeds the
+must be at most the allocator's own peak over its window. ``lint --ir
+--per-family 2`` (the same audit folded into the lint) runs as a second
+child, started with the first, and must exit 0. The audit's document then feeds the
 tuner: ``perf ingest`` puts its envelopes (at the card's width, 128) into
 the phase's database; ``tune --dry-run`` at the default memory cap vetoes
 no width, and with the cap between the anchor envelope scaled to width
@@ -326,24 +353,25 @@ def hist_bound_ms(rel, w, bin_t, n_nodes, n_bins):
         "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def synthetic_hist_inputs():
-    """K1's inputs at the full window: one fold's 100 trees, N = cap =
-    8000, F = 16, B = 64, W = 128, integer bootstrap weights, and about
-    80% of the samples in the window, so that all 128 rows are occupied."""
+def synthetic_hist_inputs(n_bins=N_BINS, window=NODE_BATCH):
+    """K1's inputs at a full window: one fold's 100 trees, N = cap =
+    8000, F = 16, B = ``n_bins`` (64), W = ``window`` (128), integer
+    bootstrap weights, and about 80% of the samples in the window, so
+    that all its rows are occupied."""
     n_tree, n, n_feat = 100, 2 * N_TESTS, 16
     rs = np.random.RandomState(0)
     w = rs.poisson(1.0, size=(n_tree, n)).astype(np.float32)
     w[:, int(0.9 * n):] = 0.0                      # invalid capacity slots
     y = (rs.rand(n) < 0.5).astype(np.float32)
-    rel = rs.randint(-1, NODE_BATCH + NODE_BATCH // 4,
+    rel = rs.randint(-1, window + window // 4,
                      size=(n_tree, n)).astype(np.int32)
-    bins = rs.randint(0, N_BINS, size=(n_feat, n)).astype(np.uint8)
+    bins = rs.randint(0, n_bins, size=(n_feat, n)).astype(np.uint8)
     dev = torch.device("cuda")
     rel_t = torch.from_numpy(rel).to(dev)
     w_t = torch.from_numpy(w).to(dev)
     wy_t = w_t * torch.from_numpy(y).to(dev)
     bin_t = torch.from_numpy(bins).to(dev)
-    return (rel_t, w_t, wy_t, bin_t, NODE_BATCH, N_BINS)
+    return (rel_t, w_t, wy_t, bin_t, window, n_bins)
 
 
 def check_hist_kernel():
@@ -3801,21 +3829,26 @@ def run_tune_lint(tmp, tj):
 
     db = os.path.join(tmp, "tune-perfdb.jsonl")
     argv = ["--n", str(N_TESTS), "--trees", str(TUNE_TREES), "--db", db]
-    buf = io.StringIO()
-    _require(tuner.tune_main(argv + ["--dry-run"], out=buf) == 0,
-             "tune --dry-run")
-    dry = json.loads(buf.getvalue())
     field = ["base", f"F16_HIST_NODE_BATCH={TUNED_NODE_BATCH}"]
-    _require(dry["backend"] == "cuda"
-             and sorted(dry["families"]) == sorted(TUNE_FAMILIES)
-             and all(f["candidates"] == field
-                     for f in dry["families"].values()),
-             f"tune --dry-run: {json.dumps(dry)[:800]}")
+    for extra, want in (([], field + ["F16_HIST_BINS=32",
+                                      "F16_HIST_BINS=48"]),
+                        (["--no-parity-knobs"], field)):
+        buf = io.StringIO()
+        _require(tuner.tune_main(argv + ["--dry-run", *extra], out=buf)
+                 == 0, f"tune --dry-run {extra}")
+        dry = json.loads(buf.getvalue())
+        _require(dry["backend"] == "cuda"
+                 and sorted(dry["families"]) == sorted(TUNE_FAMILIES)
+                 and all(f["candidates"] == want
+                         for f in dry["families"].values()),
+                 f"tune --dry-run {extra}: {json.dumps(dry)[:800]}")
 
+    # The widths alone: a bin count would add two probes and, were one to
+    # win, the parity oracle's full tier in a child (parity_full runs it).
     buf = io.StringIO()
     t0 = time.time()
-    code = tuner.tune_main(argv + ["--family", TUNE_PROBED,
-                                   "--timeout", "300"], out=buf)
+    code = tuner.tune_main(argv + ["--family", TUNE_PROBED, "--timeout",
+                                   "300", "--no-parity-knobs"], out=buf)
     tune_s = time.time() - t0
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     probes = [dict(p, family=fam) for fam, f in summary["families"].items()
@@ -3893,6 +3926,10 @@ def run_tune_lint(tmp, tj):
 
 
 AUDIT_TIMEOUT_S = 300
+# The audit's configs: the first 2 of each family (12 of the grid's 216,
+# the CPU test's sub-grid; ``audit --per-family``), every plan of the
+# census still run.
+AUDIT_PER_FAMILY = 2
 HIST_MODELS = ("Random Forest", "Extra Trees")
 
 
@@ -3925,8 +3962,9 @@ def run_audit_path(tmp):
     adir = os.path.join(tmp, "audit")
     os.makedirs(adir)
     t0 = time.time()
-    audit = _audit_child(adir, ["audit", "--json"])
-    lint = _audit_child(adir, ["lint", "--ir", "--json"])
+    sample = ["--per-family", str(AUDIT_PER_FAMILY)]
+    audit = _audit_child(adir, ["audit", "--json", *sample])
+    lint = _audit_child(adir, ["lint", "--ir", "--json", *sample])
     out, err = audit.communicate(timeout=AUDIT_TIMEOUT_S)
     audit_s = time.time() - t0
     lout, lerr = lint.communicate(timeout=AUDIT_TIMEOUT_S)
@@ -4196,6 +4234,248 @@ def print_telemetry(tel, launches, smi):
           f"on), on/off by pair {[round(x, 4) for x in walls['on_over_off']]}",
           flush=True)
 
+# The model-changing arms (``ops/trees.py``, ``ops/preprocess.py``), each
+# at full width through ``SweepEngine.run_config`` on a config of the
+# family it applies to, under its ``F16_*`` variable.
+ARM_DT = ("NOD", "Flake16", "None", "None", "Decision Tree")
+ARMS = (
+    ("bins32", MAIN_CONFIGS[0], {"F16_HIST_BINS": "32"}),
+    ("bins48", MAIN_CONFIGS[0], {"F16_HIST_BINS": "48"}),
+    ("refine_edge", MAIN_CONFIGS[0], {"F16_HIST_REFINE": "edge"}),
+    ("quota_sklearn", MAIN_CONFIGS[0], {"F16_FEATURE_QUOTA": "sklearn"}),
+    ("et_rank", MAIN_CONFIGS[1], {"F16_ET_DRAW": "rank"}),
+    ("pca_eigh", MAIN_CONFIGS[1], {"F16_PCA_IMPL": "eigh"}),
+    ("quota_sklearn", ARM_DT, {"F16_FEATURE_QUOTA": "sklearn"}),
+)
+# The card-against-CPU forest check of each arm: fold 0's inputs, this
+# many trees, grown on the CPU at a window of 64 (results-neutral; the
+# CPU's default 8 takes several times as long at N = 8000).
+ARM_CPU_TREES, ARM_CPU_WINDOW = 2, "64"
+# (FP, FN, TP) samples the eigh arm's totals may differ from svd's (the
+# JAX package's bound, tests/test_sweep.py:373-378).
+EIGH_TOTALS = 6
+# K1's synthetic full windows beyond the main path's 64 bins.
+SYNTH_BINS = (128, 256)
+FOREST_FIELDS = ("feature", "threshold", "left", "right", "value",
+                 "n_nodes")
+
+
+@contextlib.contextmanager
+def _env(values):
+    """``values`` set in ``os.environ`` for the block, then restored."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def hold_steps(steps, what):
+    """Each recorded step through K1 bitwise against its plain version
+    and against a second run. Returns (ms of all steps back to back, the
+    sum of their bounds)."""
+    from flake16_framework_tpu_torch.kernels.hist import (
+        cum_hists, cum_hists_plain,
+    )
+
+    for s in steps:
+        got, again = cum_hists(*s), cum_hists(*s)
+        want = cum_hists_plain(*s)
+        _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"hist_cumsum differs from plain on a step of {what}")
+        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"hist_cumsum: two runs differ on a step of {what}")
+        del got, again, want
+    sum_ms = _cuda_ms(lambda: launch_steps(steps), reps=3, warm=1)
+    bound = sum(hist_bound_ms(s[0], s[1], s[3], s[4], s[5])[0]
+                for s in steps)
+    return sum_ms, bound
+
+
+def check_synthetic_window(n_bins):
+    """K1 at a synthetic full window of ``n_bins`` bins, as wide as its
+    shared memory holds (``kernels/hist.max_window``), bitwise against
+    its plain version and a second run, and timed."""
+    from flake16_framework_tpu_torch.kernels.hist import max_window
+
+    args = synthetic_hist_inputs(n_bins, max_window(n_bins))
+    ms, bound = hold_steps([args], f"a {n_bins}-bin full window")
+    return {"bins": n_bins, "window": args[4], "ms": ms,
+            "bound_ms": bound, "bound_share": bound / ms}
+
+
+def card_cpu_forest(engine, keys, arm):
+    """Fold 0's fit of ``keys`` under the arm in force (``arm``, its
+    name), from the sweep's own tensors, at ``ARM_CPU_TREES`` trees: the
+    card's forest bitwise against the CPU's."""
+    from flake16_framework_tpu_torch.ops import trees
+
+    fit = "fit_forest" if keys[4] == "Decision Tree" else "fit_forest_hist"
+    args, kwargs = first_fold(engine, keys, fit, run_fit=False)
+    kwargs = dict(kwargs, n_trees=min(ARM_CPU_TREES, kwargs["n_trees"]))
+    card = getattr(trees, fit)(*args, **kwargs)
+
+    def cpu(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    t0 = time.time()
+    with _env({"F16_HIST_NODE_BATCH_CPU": ARM_CPU_WINDOW}):
+        host = getattr(trees, fit)(*map(cpu, args),
+                                   **{k: cpu(v) for k, v in kwargs.items()})
+    cpu_s = time.time() - t0
+    for fld in FOREST_FIELDS:
+        _require(torch.equal(getattr(card, fld).cpu(), getattr(host, fld)),
+                 f"{'/'.join(keys)} fold 0 under {arm}: field {fld} "
+                 f"differs between the card and the CPU")
+    return {"trees": kwargs["n_trees"], "nodes": card.n_nodes.tolist(),
+            "cpu_fit_s": cpu_s}
+
+
+def run_model_arms(tj, ref):
+    """The ``model_arms`` phase: each arm of ``ARMS`` through
+    ``run_config`` at full width (F1, K1 launches, wall), its fold-0
+    forest on the card bitwise against the CPU's, K1 bitwise against its
+    plain version on every real BFS step of fold 0's fit at 32 and 48
+    bins and on synthetic full windows at 128 and 256 bins, the Decision
+    Tree's quota arm equal to its default (all features are its quota),
+    and the eigh arm's totals within ``EIGH_TOTALS`` of svd's (the scores
+    path's ``ref``). Returns (launches of the arms' runs, report)."""
+    from flake16_framework_tpu_torch.config import FEATURE_SETS, PREP_PCA
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.ops import preprocess
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    arrays = tests_to_arrays(load_tests(tj))
+    engine = SweepEngine(*arrays)
+    dt_default = engine.run_config(ARM_DT)[3]
+    rows, launches = [], {"hist_cumsum": 0, "treeshap_unit": 0}
+    for name, keys, env in ARMS:
+        with _env(env):
+            _reset_counts()
+            t0 = time.time()
+            total = engine.run_config(keys)[3]
+            wall = time.time() - t0
+            got = _read_counts()
+            forest = card_cpu_forest(engine, keys, name)
+            steps = None
+            if "F16_HIST_BINS" in env:
+                recorded = record_steps(engine, keys)
+                _require({s[5] for s in recorded} == {
+                    int(env["F16_HIST_BINS"])}, f"{name}: step bins")
+                sum_ms, bound = hold_steps(recorded, f"{name} {keys}")
+                steps = {"steps": len(recorded), "sum_ms": sum_ms,
+                         "bound_sum_ms": bound,
+                         "bound_share": bound / sum_ms}
+                del recorded
+        for k in launches:
+            launches[k] += got[k]
+        dt = keys[4] == "Decision Tree"
+        _require((got["hist_cumsum"] == 0) == dt,
+                 f"{name} {keys}: {got['hist_cumsum']} K1 launches")
+        default = dt_default if dt else ref[keys][3]
+        row = {"arm": name, "env": env, "config": "/".join(keys),
+               "f1": total[5], "default_f1": default[5],
+               "counts_fp_fn_tp": total[:3],
+               "default_counts_fp_fn_tp": default[:3], "wall_s": wall,
+               "hist_cumsum_launches": got["hist_cumsum"],
+               "card_cpu_forest": forest, "real_steps": steps}
+        if dt:
+            _require(total[:3] == default[:3],
+                     f"{name}: the Decision Tree moved {total} {default}")
+        if name == "pca_eigh":
+            moved = sum(abs(a - b) for a, b in zip(total[:3], default[:3]))
+            _require(moved <= EIGH_TOTALS,
+                     f"pca_eigh totals {total[:3]} vs svd {default[:3]}")
+            x = torch.from_numpy(
+                engine.features[:, list(FEATURE_SETS[keys[1]])])
+            w_card = preprocess.fit_preprocess(x.cuda(), PREP_PCA,
+                                               pca_impl="eigh")[1]
+            w_cpu = preprocess.fit_preprocess(x, PREP_PCA,
+                                              pca_impl="eigh")[1]
+            row["totals_moved"] = moved
+            row["w_card_cpu_max_abs_diff"] = float(
+                (w_card.cpu() - w_cpu).abs().max())
+        rows.append(row)
+    synth = [check_synthetic_window(b) for b in SYNTH_BINS]
+    return launches, {"arms": rows, "synthetic_windows": synth,
+                      "dt_default": dt_default}
+
+
+def run_parity_full():
+    """The ``parity_full`` phase: ``perf/parity.py``'s full tier (N =
+    4000, 100 trees, 6 seeds, the three probe configs) on the card in this
+    process against the committed sklearn cache, a config at a time with
+    K1's launches read around each. Hard checks: the cache validated,
+    every seed ran, and the RF and ET configs launched K1; the +/-0.01
+    verdict is reported, not required. Returns (launches, report)."""
+    from flake16_framework_tpu_torch.perf import parity
+
+    rows, launches = {}, {"hist_cumsum": 0, "treeshap_unit": 0}
+    t0 = time.time()
+    for keys in parity.PROBE_CONFIGS:
+        _reset_counts()
+        rep = parity.run_parity(
+            n_tests=parity.FULL["n_tests"], n_trees=parity.FULL["n_trees"],
+            k_ours=parity.FULL["k_ours"], k_sk=parity.FULL["k_sk"],
+            sklearn_cache=parity.CACHE, configs=[keys], device="cuda",
+            **parity.DATA)
+        got = _read_counts()
+        row = rep["/".join(keys)]
+        dt = keys[4] == "Decision Tree"
+        _require(row["ours_k"] == (1 if dt else parity.FULL["k_ours"])
+                 and len(row["ours_f1s"]) == row["ours_k"],
+                 f"parity {keys}: {row['ours_k']} seeds ran")
+        _require((got["hist_cumsum"] > 0) != dt,
+                 f"parity {keys}: {got['hist_cumsum']} K1 launches")
+        row["hist_cumsum_launches"] = got["hist_cumsum"]
+        rows["/".join(keys)] = row
+        for k in launches:
+            launches[k] += got[k]
+    record = parity.full_record(rows, "cuda")
+    record["wall_s"] = time.time() - t0
+    return launches, record
+
+
+def print_model_arms(arms, parity_rep, smi):
+    for r in arms["arms"]:
+        steps = r["real_steps"]
+        f = r["card_cpu_forest"]
+        print(f"model arm {r['arm']} {r['config']} ({smi}): F1 {r['f1']} "
+              f"(default {r['default_f1']}), (FP, FN, TP) "
+              f"{r['counts_fp_fn_tp']}, wall {r['wall_s']:.2f} s, "
+              f"hist_cumsum launches {r['hist_cumsum_launches']}; fold 0 "
+              f"at {f['trees']} trees ({f['nodes']} nodes) card == CPU "
+              f"bitwise (CPU {f['cpu_fit_s']:.2f} s)"
+              + (f"; K1 on {steps['steps']} real steps bitwise == plain, "
+                 f"{steps['sum_ms']:.4f} ms, bound "
+                 f"{steps['bound_sum_ms']:.4f} ms "
+                 f"({steps['bound_share']:.1%})" if steps else "")
+              + (f"; totals moved {r['totals_moved']} (<= {EIGH_TOTALS}), "
+                 f"W card vs CPU {r['w_card_cpu_max_abs_diff']:.3g}"
+                 if "totals_moved" in r else ""), flush=True)
+    for w in arms["synthetic_windows"]:
+        print(f"hist_cumsum synthetic full window at {w['bins']} bins "
+              f"(W = {w['window']}) ({smi}): bitwise == plain and "
+              f"repeatable, {w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms "
+              f"({w['bound_share']:.1%})", flush=True)
+    for name, r in parity_rep["configs"].items():
+        print(f"parity_full {name} ({smi}): ours {r['ours_mean']} +/- "
+              f"{r['ours_sd']} ({r['ours_k']} seeds, {r['grower']}), "
+              f"sklearn {r['sklearn_mean']} +/- {r['sklearn_sd']} "
+              f"({r['sklearn_k']}), delta {r['delta']:+.4f}, SE "
+              f"{r['se_delta']:.4f}, "
+              f"{'within' if abs(r['delta']) <= 0.01 else 'OUTSIDE'} "
+              f"+/-0.01; {r['wall_s']:.2f} s, hist_cumsum launches "
+              f"{r['hist_cumsum_launches']}", flush=True)
+    print(f"parity_full verdict ({smi}): ok {parity_rep['ok']} at "
+          f"+/-{parity_rep['tolerance']} in {parity_rep['wall_s']:.2f} s "
+          f"(a finding, not a check of this script)", flush=True)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4320,6 +4600,11 @@ def main():
               f"{journal['append_wall_s']:.6f} s of "
               f"{journal['sweep_wall_s']:.3f} s "
               f"({journal['append_share']:.3%})", flush=True)
+        arm_launches, arms = run_model_arms(tj, ref)
+        lap("model_arms")
+        parity_launches, parity_rep = run_parity_full()
+        lap("parity_full")
+        print_model_arms(arms, parity_rep, smi)
         tel_launches, tel, tel_shap = run_telemetry_path(tmp, tj, ref)
         lap("telemetry_path")
         tel["walls"] = time_telemetry(tmp, tj)
@@ -4575,7 +4860,8 @@ def main():
               + (f" ({share:.1%} of device time)" if share else ""),
               flush=True)
 
-    paths = {"scores": score_launches, "telemetry": tel_launches,
+    paths = {"scores": score_launches, "model_arms": arm_launches,
+             "parity_full": parity_launches, "telemetry": tel_launches,
              "planner": planner_launches,
              "config_batch": batch_launches,
              "multiprocess": mp_launches,
@@ -4587,17 +4873,23 @@ def main():
              **tune_launches, "audit_path": audit_launches,
              "collect_chain": chain_launches, "collate_scale": scale_launches}
     k1["launches"] = sum(p["hist_cumsum"] for p in paths.values())
+    # the bin counts K1 was held at against its plain version in this run
+    k1["bins_held"] = sorted({N_BINS, *SYNTH_BINS, *(
+        int(a["env"]["F16_HIST_BINS"]) for a in arms["arms"]
+        if "F16_HIST_BINS" in a["env"])})
     k2["launches"] = sum(p["treeshap_unit"] for p in paths.values())
     kernels = {"kernels": [{k: kern[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for kern in (k1, k2)]}
+    kernels["kernels"][0]["bins_held"] = k1["bins_held"]
     report = {"nvidia_smi": smi, "build_s": build_s, "nvcc": logs,
               "native": {"built": native_built, "s": native_s},
               "kernels": [k1, k2], "launches_by_path": paths,
               "hist_real_steps": real,
               "small_reference": small, "exact_fold": exact,
               "scores_path": configs, "scores_path_journal": journal,
+              "model_arms": arms, "parity_full": parity_rep,
               "telemetry_path": tel,
               "planner_path": members, "planner_path_wall_s": pwall,
               "planner_path_journal": pjournal,

@@ -3,9 +3,10 @@ JAX package's ``analysis/cli.py``:
 
     python -m flake16_framework_tpu_torch lint [PATHS...] [--json]
         [--baseline FILE] [--telemetry PATH] [--rules] [--concurrency]
-        [--ir [--backend cuda|cpu]]
+        [--ir [--backend cuda|cpu] [--per-family K]]
     python -m flake16_framework_tpu_torch audit [--json] [--budget-mb MB]
         [--n N] [--trees T] [--max-depth D] [--backend cuda|cpu]
+        [--per-family K]
 
 With no PATHS the package itself is linted (the gate invocation; the
 package lints clean). ``--json`` prints the ``lint-report-v1`` document
@@ -28,7 +29,10 @@ measured memory envelope. Exit 0 = every contract holds; findings print
 in lint format. Both take ``--backend``: ``cuda`` unless the caller asks
 for the CPU, and without CUDA they raise (no silent CPU path), as ``tune``
 does. The JAX audit's ``--no-mesh`` is refused: the port runs one card and
-has no mesh.
+has no mesh. ``--per-family K``, the port's own option, audits the first
+K configs of each family (``rules_ir.family_sample``) instead of the
+whole grid: every plan of the census still runs, each over fewer
+members.
 
 Exit status: 0 = no unsuppressed findings, 1 = findings, 2 = usage error
 (``UsageError``, a ValueError; ``python -m`` prints it and exits 2).
@@ -68,11 +72,11 @@ def build_engine(packs=None):
 
 
 def run_lint(paths=None, baseline_file=None, telemetry_paths=(),
-             ir=False, backend=None, packs=None):
+             ir=False, backend=None, packs=None, configs=None):
     """The LintResult for PATHS, telemetry-document findings folded in.
     With ``ir`` the audit's findings join the result (imports torch; on
-    ``backend``). ``packs`` restricts the run (the ``--concurrency``
-    focus flag)."""
+    ``backend``, over ``configs``, default the whole grid). ``packs``
+    restricts the run (the ``--concurrency`` focus flag)."""
     engine = build_engine(packs)
     result = engine.lint(paths or default_paths(),
                          baseline=eng.load_baseline(baseline_file,
@@ -80,7 +84,8 @@ def run_lint(paths=None, baseline_file=None, telemetry_paths=(),
     if telemetry_paths:
         result.findings.extend(rules_obs.check_docs(telemetry_paths))
     if ir:
-        ir_findings, _info = rules_ir.run_audit(backend=backend)
+        ir_findings, _info = rules_ir.run_audit(backend=backend,
+                                                configs=configs)
         result.findings.extend(ir_findings)
     return result
 
@@ -93,12 +98,18 @@ def lint_main(args, out=None):
     conc_only = False
     baseline = None
     backend = None
+    per_family = None
     telemetry = []
     paths = []
     it = iter(args)
     for a in it:
         if a == "--json":
             as_json = True
+        elif a == "--per-family":
+            per_family = next(it, None)
+            if per_family is None:
+                raise UsageError("--per-family needs a count")
+            per_family = int(per_family)
         elif a == "--rules":
             show_rules = True
         elif a == "--ir":
@@ -125,6 +136,9 @@ def lint_main(args, out=None):
     if backend is not None and not with_ir:
         raise UsageError("lint --backend: only the audit (--ir) runs on a "
                          "device")
+    if per_family is not None and not with_ir:
+        raise UsageError("lint --per-family: only the audit (--ir) runs "
+                         "configs")
 
     packs = (rules_conc,) if conc_only else None
     if show_rules:
@@ -135,7 +149,9 @@ def lint_main(args, out=None):
 
     result = run_lint(paths, baseline_file=baseline,
                       telemetry_paths=telemetry, ir=with_ir,
-                      backend=backend, packs=packs)
+                      backend=backend, packs=packs,
+                      configs=None if per_family is None
+                      else rules_ir.family_sample(per_family))
     report = result.to_report()
     if as_json:
         out.write(json.dumps(report, indent=1) + "\n")
@@ -197,6 +213,8 @@ def audit_main(args, out=None):
             kw["max_depth"] = int(arg(a))
         elif a == "--backend":
             kw["backend"] = arg(a)
+        elif a == "--per-family":
+            kw["configs"] = rules_ir.family_sample(int(arg(a)))
         elif a == "--no-mesh":
             raise UsageError(NO_MESH_REFUSED)
         else:

@@ -90,11 +90,12 @@ RULES = {r.id: r for r in (
 
 # The declared F16_* knob registry (G106): name -> (kind, detail).
 # kind "enum": detail is the allowed value tuple; "int"/"float": detail is
-# the inclusive minimum; "str": free-form (censused but not value-checked).
+# the inclusive minimum, or an inclusive (minimum, maximum) pair; "str":
+# free-form (censused but not value-checked).
 # The census of the variables the port reads: the JAX package's
-# registrations with no reader here (the PCA, SHAP block, refinement,
-# bins, predict, ET draw and feature quota knobs) are left out, since a
-# declared knob no module reads is G106's stale entry.
+# registrations with no reader here (the SHAP block, refinement tile,
+# predict and hist-implementation knobs) are left out, since a declared
+# knob no module reads is G106's stale entry.
 KNOBS = {
     "F16_TELEMETRY": ("str", None),
     "F16_TELEMETRY_HEARTBEAT_S": ("float", 0.0),
@@ -108,6 +109,14 @@ KNOBS = {
     "F16_ENSEMBLE_GROWER": ("enum", ("hist", "exact")),
     "F16_HIST_NODE_BATCH": ("int", 1),
     "F16_HIST_NODE_BATCH_CPU": ("int", 0),
+    # the model-changing arms, as the JAX package declares them, but for
+    # the bins' upper bound: they are uint8 and K1 takes at most 256
+    # (ops/trees.py hist_bins, ops/preprocess.py pca_impl_of).
+    "F16_HIST_BINS": ("int", (2, 256)),
+    "F16_HIST_REFINE": ("enum", ("exact", "edge")),
+    "F16_ET_DRAW": ("enum", ("value", "rank")),
+    "F16_FEATURE_QUOTA": ("enum", ("sklearn", "informative")),
+    "F16_PCA_IMPL": ("enum", ("", "svd", "eigh")),
     # observability: per-request trace sampling rate (obs/core.py), the
     # torch.profiler capture directory of the plan and serve hooks, and
     # the flight ring's arming path (obs/flight.py).
@@ -341,7 +350,8 @@ def _knob_value_ok(kind, detail, raw):
             val = int(raw) if kind == "int" else float(raw)
         except ValueError:
             return False
-        return val >= detail
+        lo, hi = detail if isinstance(detail, tuple) else (detail, None)
+        return val >= lo and (hi is None or val <= hi)
     return True
 
 
@@ -355,8 +365,12 @@ def preflight_knob_values(environ=None):
         raw = env.get(name)
         if raw is None or _knob_value_ok(kind, detail, raw):
             continue
-        want = ("|".join(v for v in detail if v) if kind == "enum"
-                else f"{kind} >= {detail}")
+        if kind == "enum":
+            want = "|".join(v for v in detail if v)
+        elif isinstance(detail, tuple):
+            want = f"{kind} in [{detail[0]}, {detail[1]}]"
+        else:
+            want = f"{kind} >= {detail}"
         findings.append(_finding(
             "G106", f"env knob {name}={raw!r} is invalid (want {want}) — "
             "the run would raise mid-sweep or silently run a wrong arm",

@@ -138,6 +138,25 @@ def _config_list(configs):
     return [tuple(k) for k in (configs or cfg.iter_config_keys())]
 
 
+def family_sample(per_family):
+    """The first ``per_family`` configs of each family (feature set,
+    model) in the canonical grid order: a sub-grid on which every plan
+    of the whole grid's census still runs (the CLI's ``--per-family``)."""
+    from flake16_framework_tpu_torch import config as cfg
+
+    if per_family < 1:
+        raise ValueError(f"--per-family must be at least 1, got "
+                         f"{per_family}")
+    taken = {}
+    out = []
+    for keys in cfg.iter_config_keys():
+        fam = (keys[1], keys[4])
+        if taken.get(fam, 0) < per_family:
+            taken[fam] = taken.get(fam, 0) + 1
+            out.append(tuple(keys))
+    return out
+
+
 def static_plans(*, n=120, n_folds=10, devices=1, tree_overrides=None,
                  configs=None):
     """The grid's execution plans (``configs``, default: the whole grid)

@@ -60,8 +60,8 @@ N_FEATURES = len(FEATURE_NAMES)
 # FlakeFlagger subset column indices.
 FLAKEFLAGGER_COLS = (0, 1, 2, 3, 10, 11, 14)
 
-# Histogram-grower defaults of the JAX package (its F16_* knobs unset);
-# the port implements exactly these arms.
+# The growers' arms with their F16_* variables unset, the JAX package's
+# defaults (ops/trees.py resolves each at the call).
 HIST_BINS = 64
 ET_DRAW = "value"
 HIST_REFINE = "exact"

@@ -567,15 +567,20 @@ def model_kernel(model_name):
 # ``node_batch`` is the hist grower's BFS window width
 # (``trees.fit_folds_hist``): its upper
 # bound is the widest window K1's histogram holds in shared memory at
-# the grower's bins (``kernels/hist.max_window``), so a width the JAX
-# package's tuner recorded (up to 4096) or a corrupt one can never make
-# K1 raise mid-sweep. The JAX package's ``refine_tile`` has no
-# counterpart: the port's grower has no refinement pass.
+# the grower's resolved bins (``trees.hist_bins``,
+# ``kernels/hist.max_window``), so a width the JAX package's tuner
+# recorded (up to 4096) or a corrupt one can never make K1 raise
+# mid-sweep. The JAX package's ``refine_tile`` has no counterpart: the
+# port's refinement has no tile loop. Parity-affecting knobs
+# (``F16_HIST_BINS``) are deliberately not in the map, as in the JAX
+# package: a tuned row never carries them into a plan; they take effect
+# only when exported, so the plan path can never diverge from the
+# per-config and journal-resume paths.
 def _k1_window_max():
-    from flake16_framework_tpu_torch.constants import HIST_BINS
     from flake16_framework_tpu_torch.kernels.hist import max_window
+    from flake16_framework_tpu_torch.ops.trees import hist_bins
 
-    return max_window(HIST_BINS)
+    return max_window(hist_bins())
 
 
 _TUNED_FIT_KNOBS = (

@@ -2,10 +2,19 @@
 StandardScaler, or StandardScaler -> PCA (all components), fit on the full
 matrix before CV as the reference does.
 
-The PCA basis comes from ``torch.linalg.svd`` with sklearn's u-based
-``svd_flip`` sign rule (the JAX package's CPU arm). Callers resolve the
-device through ``device.resolve``, which pins full-f32 matmuls.
+The PCA basis comes from ``torch.linalg.svd`` of the centred matrix, or,
+under ``pca_impl="eigh"`` / ``F16_PCA_IMPL=eigh``, from the eigenvectors
+of its f32 Gram matrix ``xcᵀ·xc`` (columns reversed: descending
+eigenvalue is descending singular value), both with sklearn's u-based
+``svd_flip`` sign rule. The port's default is "svd" on the CPU and on the
+card alike. The JAX package defaults to eigh on a TPU only, for the TPU's
+sake: XLA:TPU lowers the SVD of a tall matrix to a long iterative
+program. cuSOLVER has no such limit, so on the card eigh is an arm to
+compare, not a default. Callers resolve the device through
+``device.resolve``, which pins full-f32 matmuls.
 """
+
+import os
 
 import torch
 
@@ -72,9 +81,33 @@ def _scaler_params(x):
     return mu, sd
 
 
-def fit_preprocess(x, prep_code):
+def pca_impl_of(pca_impl=None):
+    """The PCA factorization: ``pca_impl``, else ``F16_PCA_IMPL``, else
+    "svd" (read at call time); ValueError in the JAX package's words for
+    anything but svd|eigh."""
+    impl = pca_impl or os.environ.get("F16_PCA_IMPL", "") or "svd"
+    if impl not in ("svd", "eigh"):
+        raise ValueError(
+            f"pca_impl/F16_PCA_IMPL must be svd|eigh, got {impl!r}")
+    return impl
+
+
+def _pca_basis(xc, impl):
+    """Component basis vt [F, F] (rows are components, descending
+    variance) of the centred ``xc`` under the resolved ``impl``; each
+    row's sign is the caller's."""
+    if impl == "svd":
+        return torch.linalg.svd(xc, full_matrices=False)[2]
+    _, evecs = torch.linalg.eigh(xc.T @ xc)
+    return torch.flip(evecs, [1]).T
+
+
+def fit_preprocess(x, prep_code, pca_impl=None):
     """(mu [F], W [F,F]) with transform(x) == (x - mu) @ W for ``prep_code``
-    (PREP_NONE / PREP_SCALING / PREP_PCA)."""
+    (PREP_NONE / PREP_SCALING / PREP_PCA); ``pca_impl`` (svd|eigh, else
+    ``pca_impl_of``, resolved for every code as the JAX package's trace
+    resolves it) picks the PCA factorization."""
+    impl = pca_impl_of(pca_impl)
     f = x.shape[1]
     if prep_code == PREP_NONE:
         return torch.zeros(f, dtype=x.dtype, device=x.device), \
@@ -87,7 +120,7 @@ def fit_preprocess(x, prep_code):
     xs = (x - mu) / sd
     mu2 = _colsum(xs) * _inv_n(x)
     xc = xs - mu2
-    _, _, vt = torch.linalg.svd(xc, full_matrices=False)
+    vt = _pca_basis(xc, impl)
     # svd_flip(u_based): the sign of each component is that of U's
     # largest-|.| entry in its column; U's column is xc @ v / s.
     proj = xc @ vt.T

@@ -55,7 +55,7 @@ from typing import NamedTuple
 import torch
 
 from flake16_framework_tpu_torch import rng
-from flake16_framework_tpu_torch.constants import HIST_BINS
+from flake16_framework_tpu_torch import constants
 from flake16_framework_tpu_torch.kernels.hist import cum_hists, max_window
 from flake16_framework_tpu_torch.obs import costs
 
@@ -67,18 +67,87 @@ NODE_BATCH_ENV = {"cuda": "F16_HIST_NODE_BATCH",
                   "cpu": "F16_HIST_NODE_BATCH_CPU"}
 
 
-def default_node_batch(device_type, env=None):
+# The bins are uint8 and K1 takes at most 256 of them (``kernels/hist``).
+MAX_BINS = 256  # f16lint: disable=G108 (K1's limit, not a tunable)
+
+
+def _checked(name, got, domain):
+    """``got``, the value of arm ``name``; ValueError in the JAX
+    package's words outside ``domain``."""
+    if got not in domain:
+        raise ValueError(f"{name} must be {'|'.join(domain)}, got {got!r}")
+    return got
+
+
+def hist_bins(n_bins=None, env=None):
+    """The histogram grower's bin count: ``n_bins``, else
+    ``F16_HIST_BINS``, else 64 (read at call time). A whole number from 2
+    to ``MAX_BINS``, else ValueError: the bins are uint8 and K1 takes at
+    most 256. Bin-granular candidates make this a model-changing knob."""
+    env = os.environ if env is None else env
+    raw = n_bins if n_bins is not None else env.get(
+        "F16_HIST_BINS", str(constants.HIST_BINS))
+    try:
+        bins = int(str(raw).strip())
+    except ValueError:
+        bins = 0
+    if not 2 <= bins <= MAX_BINS:
+        raise ValueError(f"F16_HIST_BINS must be a whole number from 2 to "
+                         f"{MAX_BINS} (the bins are uint8 and K1 takes at "
+                         f"most {MAX_BINS}), got {raw!r}")
+    return bins
+
+
+def hist_refine(refine=None):
+    """The hist grower's threshold refinement: ``refine``, else
+    ``F16_HIST_REFINE``, else "exact" (each Random Forest winner
+    sharpened to sklearn's midpoint); "edge" keeps the raw bin edge."""
+    if refine is None:
+        refine = os.environ.get("F16_HIST_REFINE", constants.HIST_REFINE)
+    return _checked("F16_HIST_REFINE", refine, ("exact", "edge"))
+
+
+def et_draw(draw=None):
+    """The hist grower's Extra Trees threshold draw: ``draw``, else
+    ``F16_ET_DRAW``, else "value" (uniform over the node's value span,
+    rounded down to a bin edge); "rank" is uniform over the occupied
+    boundary indices, which fewer than 3 bins always take."""
+    if draw is None:
+        draw = os.environ.get("F16_ET_DRAW", constants.ET_DRAW)
+    return _checked("F16_ET_DRAW", draw, ("value", "rank"))
+
+
+def feature_quota(quota=None):
+    """Both growers' per-node feature quota: ``quota``, else
+    ``F16_FEATURE_QUOTA``, else "informative" (the ``max_features``
+    non-constant features with the smallest draws); "sklearn" lets
+    constant features use up the quota, as sklearn 1.0.2's splitter
+    does."""
+    if quota is None:
+        quota = os.environ.get("F16_FEATURE_QUOTA", constants.FEATURE_QUOTA)
+    return _checked("F16_FEATURE_QUOTA", quota, ("sklearn", "informative"))
+
+
+def _arms(refine=None, draw=None, quota=None):
+    """One fit's resolved arms, as the growers take them (here, the fit
+    functions' keywords do not shadow the resolvers)."""
+    return dict(refine=hist_refine(refine), draw=et_draw(draw),
+                quota=feature_quota(quota))
+
+
+def default_node_batch(device_type, env=None, n_bins=None):
     """The hist grower's window width on ``device_type`` when its caller
     names none: the operator's pin (``NODE_BATCH_ENV``; "0" on the CPU
-    means none, as in the JAX package), else ``NODE_BATCH``. A pin must be
-    a whole number from 1 to the widest window K1 holds at the grower's
-    bins (``kernels/hist.max_window``), else ValueError."""
+    means none, as in the JAX package), else ``NODE_BATCH`` cut to the
+    widest window K1 holds at the grower's bins (``hist_bins(n_bins)``;
+    ``kernels/hist.max_window``: 226 nodes at 64 bins, 113 at 128). A pin
+    must be a whole number from 1 to that width, else ValueError."""
     env = os.environ if env is None else env
+    limit = max_window(hist_bins(n_bins, env))
     name = NODE_BATCH_ENV[device_type]
     raw = env.get(name, "").strip()
     if raw == "" or (device_type == "cpu" and raw == "0"):
-        return NODE_BATCH[device_type]
-    limit = max_window(HIST_BINS)
+        return min(NODE_BATCH[device_type], limit)
     try:
         width = int(raw)
     except ValueError:
@@ -105,10 +174,10 @@ def fit_stage_flops(*, n, n_feat, n_bins, n_trees, n_nodes, max_nodes,
     - partition: per step, the O(n x bw) membership one-hot plus
       refinement reduces, and O(n) routing gathers.
 
-    ``node_batch`` (the window width bw) defaults to the grower's own,
-    ``default_node_batch(device_type)``."""
+    ``node_batch`` (the window width bw) defaults to the grower's own at
+    these bins, ``default_node_batch(device_type, n_bins=n_bins)``."""
     if node_batch is None:
-        node_batch = default_node_batch(device_type)
+        node_batch = default_node_batch(device_type, n_bins=n_bins)
     bw = max(1, min(node_batch, max_nodes))
     steps = max(1, -(-int(n_nodes) // bw))
     per_tree = {
@@ -152,14 +221,16 @@ def trim_nodes(forest, m):
         value=forest.value[..., :m, :])
 
 
-def quantile_edges(x):
-    """Inner bin edges [F, HIST_BINS-1]: midpoints between adjacent sorted
-    values at quantile ranks. Bin b covers edges[b-1] < x <= edges[b]."""
+def quantile_edges(x, n_bins=None):
+    """Inner bin edges [F, B-1] at B = ``hist_bins(n_bins)`` bins:
+    midpoints between adjacent sorted values at quantile ranks. Bin b
+    covers edges[b-1] < x <= edges[b]."""
+    n_bins = hist_bins(n_bins)
     n = x.shape[0]
     # stable, as jnp.sort: -0.0 and 0.0 compare equal and keep their order
     xs = torch.sort(x, dim=0, stable=True).values
-    ks = torch.clamp((torch.arange(1, HIST_BINS, device=x.device) * n)
-                     // HIST_BINS - 1, 0, n - 1)
+    ks = torch.clamp((torch.arange(1, n_bins, device=x.device) * n)
+                     // n_bins - 1, 0, n - 1)
     lo = xs[ks]
     hi = xs[torch.clamp(ks + 1, 0, n - 1)]
     return ((lo + hi) * 0.5).T.contiguous()
@@ -209,15 +280,27 @@ def _proxy_score(lw, lwy, rw, rwy, valid):
     return torch.where(valid, score, torch.full_like(score, -torch.inf))
 
 
-def _select_features(nc, u, max_features):
-    """sklearn's per-node feature draw, "informative" quota: the
-    ``max_features`` non-constant features with the smallest draws.
-    nc [..., F] bool, u [..., F] uniforms. Returns sel [..., F] bool."""
+def _select_features(nc, u, max_features,
+                     quota=constants.FEATURE_QUOTA):
+    """sklearn's per-node feature draw. nc [..., F] bool, u [..., F]
+    uniforms; returns sel [..., F] bool. The "informative" quota takes
+    the ``max_features`` non-constant features with the smallest draws.
+    The "sklearn" quota visits the features in the order of their draws
+    (ranks from two stable argsorts, as ``jnp.argsort``'s): the visited
+    prefix is ``max_features`` long, stretched to reach the first
+    non-constant feature, and selects the non-constant ones in it."""
     if max_features is None:
         return nc
-    r = torch.where(nc, u, torch.full_like(u, torch.inf))
-    kth = torch.sort(r, dim=-1).values[..., max_features - 1:max_features]
-    return (r <= kth) & nc
+    if quota == "informative":
+        r = torch.where(nc, u, torch.full_like(u, torch.inf))
+        kth = torch.sort(r, dim=-1).values[..., max_features - 1:
+                                           max_features]
+        return (r <= kth) & nc
+    n_feat = nc.shape[-1]
+    rank = torch.argsort(torch.argsort(u, dim=-1, stable=True), dim=-1,
+                         stable=True)
+    first_nc = torch.where(nc, rank, n_feat).min(-1, keepdim=True).values
+    return nc & (rank < torch.clamp(first_nc + 1, min=max_features))
 
 
 def _window_update(arr, start, updates, mask):
@@ -263,13 +346,18 @@ def _node_uniforms(kg, n_ids, n_feat, random_splits):
 
 
 def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
-                max_depth, max_nodes, node_batch):
+                max_depth, max_nodes, node_batch,
+                refine=constants.HIST_REFINE, draw=constants.ET_DRAW,
+                quota=constants.FEATURE_QUOTA):
     """Grow a batch of T trees on G groups of samples: x [G, N, F], their
     bins bin_t [G, F, N] and labels y01 [G, N]; the bin edges [F, B-1]
     are shared, or [G, F, B-1] are a group's. Per-tree weights w [T, N]
     and grower keys kg [T, 2]; tree t belongs to group t // (T / G).
-    Returns the Forest field tensors (feature, threshold, left, right,
-    value, n_nodes), tree axis T, node axis cut to ``max_nodes``."""
+    ``refine``, ``draw`` and ``quota`` are the resolved arms
+    (``hist_refine``, ``et_draw``, ``feature_quota``); fewer than 3 bins
+    take the rank draw. Returns the Forest field tensors (feature,
+    threshold, left, right, value, n_nodes), tree axis T, node axis cut
+    to ``max_nodes``."""
     dev = x.device
     n_group = x.shape[0]
     n_tree, n = w.shape
@@ -319,8 +407,9 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
     a = torch.ones(n_tree, dtype=torch.int64, device=dev)
     p = torch.zeros(n_tree, dtype=torch.int64, device=dev)
     u_feat, u_thr = _node_uniforms(kg, max_nodes + bw, n_feat, random_splits)
+    rank_draw = draw == "rank" or n_bins < 3
 
-    if random_splits:
+    if random_splits and not rank_draw:
         # Node value span from the occupied bins' edge values; the end
         # bins extrapolate one neighbour width.
         first = edges[..., :1] - (edges[..., 1:2] - edges[..., :1])
@@ -348,18 +437,24 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
         if random_splits:
             # Extra Trees: a threshold drawn uniformly in VALUE space over
             # the node's occupied bin span, rounded down to its bin's
-            # lower boundary.
+            # lower boundary; or, under the rank draw, uniformly over the
+            # span's boundary indices.
             prev = torch.cat([torch.zeros_like(cw[..., :1]), cw[..., :-1]],
                              -1)
             occ = (cw > prev).to(torch.uint8)                # [T, F, W, B]
             lo = torch.argmax(occ, -1)
             hi = n_bins - 1 - torch.argmax(torch.flip(occ, [-1]), -1)
             u = u_thr[iota_t[:, None], ids].permute(0, 2, 1)  # [T, F, W]
-            vmin = edge_at(full_edges, lo)
-            vmax = edge_at(full_edges, hi + 1)
-            thr_v = _fma(u, vmax - vmin, vmin)
-            cnt = (tree_edges < thr_v[..., None]).sum(-1)
-            bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
+            if rank_draw:
+                # one product and a floor: no multiply-add to contract
+                span = torch.clamp(hi - lo, min=1)
+                bsel = lo + 1 + torch.floor(u * span).to(torch.int64)
+            else:
+                vmin = edge_at(full_edges, lo)
+                vmax = edge_at(full_edges, hi + 1)
+                thr_v = _fma(u, vmax - vmin, vmin)
+                cnt = (tree_edges < thr_v[..., None]).sum(-1)
+                bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
             bm1 = torch.clamp(bsel - 1, 0, n_bins - 2)
             lw_j = lw.gather(-1, bm1[..., None])[..., 0]
             lwy_j = lwy.gather(-1, bm1[..., None])[..., 0]
@@ -380,7 +475,8 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
 
         # ---- feature choice (sklearn's random feature draw) --------------
         u_f = u_feat[iota_t[:, None], ids]                   # [T, W, F]
-        sel = _select_features(nc.permute(0, 2, 1), u_f, max_features)
+        sel = _select_features(nc.permute(0, 2, 1), u_f, max_features,
+                               quota)
         score_j = torch.where(sel.permute(0, 2, 1), score_j,
                               torch.full_like(score_j, -torch.inf))
         best_f = torch.argmax(score_j, 1)                    # [T, W]
@@ -413,7 +509,7 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
         bf_mine = best_f.gather(1, rs)                       # [T, N]
         go_left = at_group(bin_t, bf_mine) < bound_n.gather(1, rs)
 
-        if not random_splits:
+        if not random_splits and refine == "exact":
             # Sharpen each winner to the exact sklearn midpoint between
             # the closest member values either side of the chosen edge;
             # routing is unchanged, only the stored threshold moves.
@@ -501,14 +597,19 @@ def _joined(parts, n_folds, n_trees, tree_chunk, fold_chunk):
 
 def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
                    random_splits, sqrt_features, max_depth=48, max_nodes=None,
-                   tree_chunk=None, fold_chunk=None, node_batch=None):
+                   tree_chunk=None, fold_chunk=None, node_batch=None,
+                   n_bins=None, refine=None, et_draw=None,
+                   feature_quota=None):
     """Fit one histogram-grown ensemble a fold, the folds' trees grown as
     one tree batch. x [G, N, F] f32, y [G, N] bool/int, w [G, N] >= 0
     sample weights (0 = row excluded) and ``keys`` [G, 2] threefry keys,
-    one a fold; ``edges`` [F, HIST_BINS-1] are shared by the folds (once a
-    config), or [G, F, HIST_BINS-1] are one set a group (a config batch:
-    each fold reads its own config's edges). Returns a ``Forest`` with
-    [G, n_trees, ...] leading axes.
+    one a fold; ``edges`` [F, B-1] are shared by the folds (once a
+    config), or [G, F, B-1] are one set a group (a config batch: each
+    fold reads its own config's edges). The edges carry the bin count B;
+    ``n_bins``, where given, must agree with them. The arms ``refine``,
+    ``et_draw`` and ``feature_quota`` resolve at the call
+    (``hist_refine``, ``et_draw``, ``feature_quota``). Returns a
+    ``Forest`` with [G, n_trees, ...] leading axes.
 
     RandomForest = bootstrap, not random_splits; ExtraTrees = random_splits,
     no bootstrap; both with sqrt_features. Tree t of fold g draws from
@@ -520,6 +621,11 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
     workspace is about 5 MiB a tree at N = 8000, W = 128
     (``parallel/sweep.py``, ``TREES_IN_FLIGHT``)."""
     n_fold, n, n_feat = x.shape
+    bins = edges.shape[-1] + 1
+    if n_bins is not None and hist_bins(n_bins) != bins:
+        raise ValueError(f"fit_folds_hist: n_bins={n_bins} but the edges "
+                         f"hold {bins} bins")
+    arms = _arms(refine, et_draw, feature_quota)
     if max_nodes is None:
         max_nodes = 2 * n
     max_features = max(1, int(n_feat ** 0.5)) if sqrt_features else None
@@ -544,8 +650,8 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
             y01[gs], w_flat,
             kg[gs, ts].reshape(-1, 2), random_splits=random_splits,
             max_features=max_features, max_depth=max_depth,
-            max_nodes=max_nodes,
-            node_batch=node_batch or default_node_batch(x.device.type))
+            max_nodes=max_nodes, node_batch=node_batch or default_node_batch(
+                x.device.type, n_bins=bins), **arms)
         parts.append([f.view(*wb.shape[:2], *f.shape[1:]) for f in fields])
     return Forest(*_joined(parts, n_fold, n_trees, tree_chunk, fold_chunk),
                   max_depth)
@@ -553,20 +659,22 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
 
 def fit_forest_hist(x, y, w, key, *, n_trees, bootstrap, random_splits,
                     sqrt_features, max_depth=48, max_nodes=None, edges=None,
-                    tree_chunk=None):
+                    tree_chunk=None, n_bins=None, refine=None, et_draw=None,
+                    feature_quota=None):
     """Fit a histogram-grown ensemble on one fold: ``fit_folds_hist`` with
     one fold. x [N, F] f32; y [N] bool/int; w [N] >= 0 sample weights;
     ``key`` a threefry key [2]; ``edges`` (once per config) default to
-    ``quantile_edges(x)``. Returns a ``Forest`` with a [n_trees, ...]
-    leading axis."""
+    ``quantile_edges(x, n_bins)``. Returns a ``Forest`` with a
+    [n_trees, ...] leading axis."""
     x = x.to(torch.float32)
     if edges is None:
-        edges = quantile_edges(x)
+        edges = quantile_edges(x, n_bins)
     forest = fit_folds_hist(
         x[None], y[None], w[None], key[None], edges=edges, n_trees=n_trees,
         bootstrap=bootstrap, random_splits=random_splits,
         sqrt_features=sqrt_features, max_depth=max_depth,
-        max_nodes=max_nodes, tree_chunk=tree_chunk)
+        max_nodes=max_nodes, tree_chunk=tree_chunk, n_bins=n_bins,
+        refine=refine, et_draw=et_draw, feature_quota=feature_quota)
     return Forest(*(f[0] for f in forest[:-1]), max_depth)
 
 
@@ -653,7 +761,8 @@ def _node_lookup(sample_rel, w_cap):
 
 
 def _fit_trees_exact(x, y01, w, keys, order0, xsorted, *, random_splits,
-                     max_features, max_depth, max_nodes):
+                     max_features, max_depth, max_nodes,
+                     quota=constants.FEATURE_QUOTA):
     """Grow the trees of G groups (folds) a level at a time on the exact
     grower, all as one batch. x [G, N, F], labels y01 [G, N] and each
     feature's stable value order and sorted values order0/xsorted
@@ -662,7 +771,8 @@ def _fit_trees_exact(x, y01, w, keys, order0, xsorted, *, random_splits,
     order from kf ([N, F] uniforms), the Extra Trees thresholds from kt
     ([F, N]). A level's node slots are the window [level_base,
     level_base + N) and its children's [n_nodes, n_nodes + 2N), so the
-    node arrays carry 2N slots of padding.
+    node arrays carry 2N slots of padding. ``quota`` is the resolved
+    feature quota (``feature_quota``).
 
     A tree's level base and node count are [G, T, 1] tensors, so a
     finished tree's level is a no-op and the loop reads one number a
@@ -787,8 +897,8 @@ def _fit_trees_exact(x, y01, w, keys, order0, xsorted, *, random_splits,
         # ---- feature choice (sklearn's random feature draw) --------------
         u_f = rng.uniform(kf, (n, n_feat)) if max_features is not None \
             else None
-        sel = _select_features(nc_j.transpose(-1, -2), u_f,
-                               max_features).transpose(-1, -2)
+        sel = _select_features(nc_j.transpose(-1, -2), u_f, max_features,
+                               quota).transpose(-1, -2)
         score_j = torch.where(sel, score_j, minus_inf)
         best_f = torch.argmax(score_j, -2)                   # [G, T, N]
 
@@ -838,7 +948,7 @@ def _fit_trees_exact(x, y01, w, keys, order0, xsorted, *, random_splits,
 
 def fit_folds(x, y, w, keys, *, n_trees, bootstrap, random_splits,
               sqrt_features, max_depth=48, max_nodes=None, tree_chunk=None,
-              fold_chunk=None):
+              fold_chunk=None, feature_quota=None):
     """Fit one ensemble a fold on the exact grower, the folds' trees grown
     as one batch (``_fit_trees_exact``). x [G, N, F] f32, y [G, N]
     bool/int, w [G, N] >= 0 sample weights (0 = row excluded) and
@@ -850,7 +960,9 @@ def fit_folds(x, y, w, keys, *, n_trees, bootstrap, random_splits,
     split(keys[g], n_trees)[t], which splits into its bootstrap key and
     its grower key. Each fold's forest equals ``fit_forest`` on that fold
     bit for bit, for any batches: at most ``fold_chunk`` folds by
-    ``tree_chunk`` trees a batch (None: all)."""
+    ``tree_chunk`` trees a batch (None: all). ``feature_quota`` resolves
+    at the call (``feature_quota``); the exact grower has no other arm."""
+    quota = _arms(quota=feature_quota)["quota"]
     n_fold, n, n_feat = x.shape
     if max_nodes is None:
         max_nodes = 2 * n
@@ -867,14 +979,15 @@ def fit_folds(x, y, w, keys, *, n_trees, bootstrap, random_splits,
     parts = [list(_fit_trees_exact(
         x[gs], y01[gs], wt[gs, ts], kk[gs, ts, 1], order0[gs], xsorted[gs],
         random_splits=random_splits, max_features=max_features,
-        max_depth=max_depth, max_nodes=max_nodes))
+        max_depth=max_depth, max_nodes=max_nodes, quota=quota))
         for gs, ts in _batches(n_fold, n_trees, tree_chunk, fold_chunk)]
     return Forest(*_joined(parts, n_fold, n_trees, tree_chunk, fold_chunk),
                   max_depth)
 
 
 def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
-               sqrt_features, max_depth=48, max_nodes=None, tree_chunk=None):
+               sqrt_features, max_depth=48, max_nodes=None, tree_chunk=None,
+               feature_quota=None):
     """Fit an ensemble on the exact grower on one fold: ``fit_folds`` with
     one fold, at most ``tree_chunk`` trees a batch (None: all). x [N, F]
     f32; y [N] bool/int; w [N] >= 0 sample weights; ``key`` a threefry
@@ -883,7 +996,8 @@ def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
         x[None], y[None], w[None], key[None], n_trees=n_trees,
         bootstrap=bootstrap, random_splits=random_splits,
         sqrt_features=sqrt_features, max_depth=max_depth,
-        max_nodes=max_nodes, tree_chunk=tree_chunk)
+        max_nodes=max_nodes, tree_chunk=tree_chunk,
+        feature_quota=feature_quota)
     return Forest(*(f[0] for f in forest[:-1]), max_depth)
 
 
@@ -950,14 +1064,18 @@ def predict_batch(forest, x):
 def _fit_hist_cost_fields(args, kwargs):
     n, f = args[0].shape
     max_nodes = kwargs.get("max_nodes") or 2 * n
+    edges = kwargs.get("edges")
+    n_bins = hist_bins(kwargs.get("n_bins")) if edges is None \
+        else edges.shape[-1] + 1
     return {"stage_flops": fit_stage_flops(
-        n=n, n_feat=f, n_bins=HIST_BINS, n_trees=kwargs["n_trees"],
+        n=n, n_feat=f, n_bins=n_bins, n_trees=kwargs["n_trees"],
         n_nodes=max_nodes, max_nodes=max_nodes,
         device_type=args[0].device.type)}
 
 
 _FIT_STATIC = ("n_trees", "bootstrap", "random_splits", "sqrt_features",
-               "max_depth", "max_nodes", "tree_chunk")
+               "max_depth", "max_nodes", "tree_chunk", "n_bins", "refine",
+               "et_draw", "feature_quota")
 fit_forest_hist = costs.instrument(fit_forest_hist, "trees.fit_forest_hist",
                                    static_argnames=_FIT_STATIC,
                                    cost_fields=_fit_hist_cost_fields)

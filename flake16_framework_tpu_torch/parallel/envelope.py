@@ -477,11 +477,13 @@ def _batches(n_folds, n_trees, tree_chunk, fold_chunk):
 
 
 def member_envelope(keys, *, n, n_trees, n_folds, n_projects, max_depth,
-                    hist, width, tree_chunk, fold_chunk, device_type):
+                    hist, width, tree_chunk, fold_chunk, device_type,
+                    n_bins=HIST_BINS):
     """(peak bytes over the engine's resident ones, {phase: peak}) of one
-    member, config ``keys`` at ``n`` rows, run by ``_fit_count_folds``."""
+    member, config ``keys`` at ``n`` rows and ``n_bins`` bins, run by
+    ``_fit_count_folds``."""
     _, cols, prep, bal, spec = cfg.resolve_config(keys)
-    f, cap, b = len(cols), 2 * n, HIST_BINS
+    f, cap, b = len(cols), 2 * n, n_bins
     max_nodes = 2 * cap
     max_features = max(1, int(f ** 0.5)) if spec.sqrt_features else None
     live = _Live(device_type)
@@ -586,13 +588,14 @@ def _resident_bytes(*, n, n_folds, device_type):
 
 
 def plan_envelope(plan, *, n_projects, max_depth, hist, width, tree_chunk,
-                  fold_chunk, device_type, detail=False):
+                  fold_chunk, device_type, detail=False, n_bins=HIST_BINS):
     """{"arg_bytes", "out_bytes", "peak_bytes"} of one ``planner.Plan``
     on ``device_type`` ("cuda" or "cpu"): what the engine keeps resident,
     the plan's outputs (each member's int32 [n_folds, P, 3] counts) and
     the resident bytes plus its largest member's peak. ``hist`` is
     whether the family grows on the histogram grower, ``width`` its window
-    width, ``tree_chunk``/``fold_chunk`` a tree batch's bounds
+    width and ``n_bins`` its bins, ``tree_chunk``/``fold_chunk`` a tree
+    batch's bounds
     (``sweep.batch_bounds``). ``detail=True`` adds the largest member's
     ``phases`` and its ``config``. Raises ValueError for a plan it cannot
     bound."""
@@ -611,7 +614,7 @@ def plan_envelope(plan, *, n_projects, max_depth, hist, width, tree_chunk,
             keys, n=n, n_trees=n_trees, n_folds=n_folds,
             n_projects=n_projects, max_depth=max_depth, hist=hist,
             width=width, tree_chunk=tree_chunk, fold_chunk=fold_chunk,
-            device_type=device_type)
+            device_type=device_type, n_bins=n_bins)
         if best is None or peak > best[0]:
             best = (peak, phases, keys)
     arg = _resident_bytes(n=n, n_folds=n_folds, device_type=device_type)

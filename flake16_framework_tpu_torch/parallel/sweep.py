@@ -4,12 +4,19 @@ per-project confusion. The folds are stratified (10) or leave one project
 out (one a project).
 
 Keys follow the JAX package exactly: the config key is
-``fold_in(PRNGKey(SEED), config_index)`` over the canonical grid order;
+``fold_in(PRNGKey(engine.seed), config_index)`` over the canonical grid
+order (``seed`` defaults to ``SEED``; the parity oracle varies it);
 fold keys are ``split(config_key, n_folds)``; each fold key splits into the
 resampler's key and the forest's key. An ensemble grows on the histogram
 grower and the single Decision Tree on the exact grower
 (``trees.hist_tier_default``; ``grower="exact"`` or
 ``F16_ENSEMBLE_GROWER=exact`` puts ensembles on the exact grower too).
+The JAX package's model-changing arms are read when a config is
+prepared or fit: ``F16_HIST_BINS`` sets the bin edges (and, through
+them, K1's bins, the stage flops and the budget envelope),
+``F16_HIST_REFINE``, ``F16_ET_DRAW`` and ``F16_FEATURE_QUOTA`` the
+growers' arms, ``F16_PCA_IMPL`` the PCA factorization
+(``ops/trees.py``, ``ops/preprocess.py``).
 
 Three ways to run a config, each giving the same counts:
 
@@ -90,7 +97,6 @@ import numpy as np
 import torch
 
 from flake16_framework_tpu_torch import config as cfg, obs, rng
-from flake16_framework_tpu_torch.constants import HIST_BINS
 from flake16_framework_tpu_torch.device import resolve, resolve_devices
 from flake16_framework_tpu_torch.kernels.build import launch_counts
 from flake16_framework_tpu_torch.obs import costs, perfdb
@@ -108,7 +114,7 @@ from flake16_framework_tpu_torch.resilience import guard as rguard
 from flake16_framework_tpu_torch.resilience import inject as rinject
 
 N_FOLDS = 10
-SEED = 0  # the config keys' root seed, as the reference's
+SEED = 0  # the config keys' default root seed, as the reference's
 
 # Trees grown as one batch by the fused config and the plan executor when
 # no dispatch bound is given (the JAX package's ``_auto_tree_chunk``).
@@ -141,7 +147,7 @@ def _fit_cost_fields(spec, *, n, n_feat, cap, n_folds, grower,
 
     def fields(args, kwargs):
         return {"stage_flops": trees.fit_stage_flops(
-            n=cap_r, n_feat=n_feat, n_bins=HIST_BINS,
+            n=cap_r, n_feat=n_feat, n_bins=trees.hist_bins(),
             n_trees=spec.n_trees * n_folds, n_nodes=max_nodes,
             max_nodes=max_nodes, device_type=device_type)}
 
@@ -193,19 +199,22 @@ def plan_envelope(plan, grow_kw=None, *, n_projects, max_depth, grower,
                   device_type, dispatch_trees=None, dispatch_folds=None,
                   detail=False):
     """``envelope.plan_envelope`` of ``plan`` as ``SweepEngine.run_plan``
-    runs it: on the histogram grower at the window width ``grow_kw``
-    names (``run_plan``'s tuned width), else ``trees.default_node_batch``
-    of ``device_type``, in the tree batches of ``batch_bounds``."""
+    runs it: on the histogram grower at the bins ``trees.hist_bins``
+    resolves and the window width ``grow_kw`` names (``run_plan``'s tuned
+    width), else ``trees.default_node_batch`` of ``device_type``, in the
+    tree batches of ``batch_bounds``."""
     n_trees = plan.shape[2]
     hist = trees.hist_tier_default(n_trees, grower)
+    n_bins = trees.hist_bins()
     width = ((grow_kw or {}).get("node_batch")
-             or trees.default_node_batch(device_type)) if hist else None
+             or trees.default_node_batch(device_type, n_bins=n_bins)) \
+        if hist else None
     tree_chunk, fold_chunk = batch_bounds(n_trees, hist, dispatch_trees,
                                           dispatch_folds)
     return envelope.plan_envelope(
         plan, n_projects=n_projects, max_depth=max_depth, hist=hist,
         width=width, tree_chunk=tree_chunk, fold_chunk=fold_chunk,
-        device_type=device_type, detail=detail)
+        device_type=device_type, detail=detail, n_bins=n_bins)
 
 
 def _preflight_plan_budget(plans, *, n_projects, max_depth, grower,
@@ -363,14 +372,16 @@ class SweepEngine:
     every plan and holds the budget against what it measured. ``group``
     (a ``distributed.ProcessGroup``) makes ``run_config_batch`` split its
     batch over every rank's cards; the engine's devices are this rank's
-    (``device.rank_devices``)."""
+    (``device.rank_devices``). ``seed`` is the root of every config key;
+    ``engine.seed`` may be set between runs, as the parity oracle does
+    (``perf/parity.py``)."""
 
     def __init__(self, features, labels_raw, projects, project_names,
                  project_ids, *, max_depth=48, tree_overrides=None,
                  cv="stratified", device=None, devices=None, fused=False,
                  planner_mode=False, dispatch_trees=None,
                  dispatch_folds=None, grower=None, preflight=True,
-                 group=None):
+                 group=None, seed=SEED):
         if devices is not None:
             if device is not None:
                 raise ValueError("pass device or devices, not both")
@@ -381,6 +392,7 @@ class SweepEngine:
             self.devices = [self.device]
         self.preflight = preflight
         self.group = group
+        self.seed = seed
         trees.ensemble_grower(grower)               # a bad value raises now
         self.grower = grower
         self.fused = fused
@@ -452,8 +464,8 @@ class SweepEngine:
 
     def _fold_keys(self, config_keys, device=None):
         """The config's fold keys [n_folds, 2]: ``split(fold_in(
-        PRNGKey(SEED), config index), n_folds)``."""
-        key = rng.fold_in(rng.prng_key(SEED, device or self.device),
+        PRNGKey(self.seed), config index), n_folds)``."""
+        key = rng.fold_in(rng.prng_key(self.seed, device or self.device),
                           self._index[tuple(config_keys)])
         return rng.split(key, self.n_folds)
 

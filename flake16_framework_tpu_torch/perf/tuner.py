@@ -27,16 +27,16 @@ What differs from the JAX package's tuner:
   ``F16_HIST_NODE_BATCH_CPU`` on the CPU and ``F16_HIST_NODE_BATCH`` on
   the card (``ops/trees.default_node_batch``; the device predicate is
   ``backend == "cuda"`` where the JAX package's is ``backend !=
-  "cpu"``). The card's domain is ``64 128`` where the JAX package's is
-  ``64 128 256``: the bins are fixed at 64 (``constants.HIST_BINS``),
-  and at 64 bins K1's histogram holds at most 226 nodes in a block's
-  shared memory (``kernels/hist.max_window``), so the grower raises for
-  256 and a probe of it could only come back ``inf``. Three JAX
-  registrations have no reader here and are not registered:
-  ``F16_HIST_REFINE_TILE`` (the port's grower has no refinement pass),
-  ``F16_HIST_BINS`` (the bins are fixed, and K1's shared-memory window
-  is sized by them) and ``F16_SHAP_TREE_CHUNK`` (the port's explain has
-  no tree-chunk loop).
+  "cpu"``), and the histogram resolution ``F16_HIST_BINS`` (``32 48
+  64``, default 64, parity-affecting, ensembles only, as in the JAX
+  package; ``ops/trees.hist_bins``). The card's width domain is ``64
+  128`` where the JAX package's is ``64 128 256``: at the default 64
+  bins K1's histogram holds at most 226 nodes in a block's shared
+  memory (``kernels/hist.max_window``), so the grower raises for 256
+  and a probe of it could only come back ``inf``. Two JAX registrations
+  have no reader here and are not registered: ``F16_HIST_REFINE_TILE``
+  (the port's refinement has no tile loop) and ``F16_SHAP_TREE_CHUNK``
+  (the port's explain has no tree-chunk loop).
 - **The probe** (``tune --probe``) runs the port's ``SweepEngine(...,
   planner_mode=True)`` on the family's configs from ``perf/probe.py``
   (the port's copy of ``bench.py``'s probe configs and data maker) on
@@ -46,13 +46,16 @@ What differs from the JAX package's tuner:
   candidate still probes in a fresh child process, so that it gets its
   own CUDA context and allocator and its failure cannot take the search
   down. A probe whose configs the dispatch guard quarantines fails.
-- **No parity oracle.** The JAX package's oracle runs ``parity.py``
-  (jax and sklearn). The port registers no parity-affecting knob, so
-  ``tune_main`` passes ``parity_check=None`` and ``tune_family``'s rule
-  applies: with no checker, parity knobs are skipped up front. The JAX
-  verb's ``--parity-timeout``, ``--no-parity-knobs`` and ``--json`` have
-  nothing to act on here (the summary is always one JSON line) and are
-  not accepted.
+- **The parity oracle is the port's own** (``perf/parity.py``). The
+  JAX package's ``parity_subprocess_check`` runs the root ``parity.py``
+  small tier, which computes sklearn's side; the port has no sklearn,
+  so its check runs ``perf/parity.py --full`` (N = 4000, 100 trees, 6
+  seeds, against the committed sklearn cache) in a child under the
+  candidate's env on the tuner's device. A winner that sets a
+  parity-affecting knob is accepted only when that child exits 0.
+  ``--no-parity-knobs`` searches the results-neutral knobs only, and
+  ``--parity-timeout`` bounds the child, as in the JAX verb. Its
+  ``--json`` is not accepted: the summary is always one JSON line.
 - **Backend.** ``tune`` searches on ``cuda`` unless ``--backend cpu``
   asks for the CPU, and raises without CUDA (``device.resolve``): there
   is no silent CPU path.
@@ -108,6 +111,10 @@ def _device_hist(shape, backend, model):
     return backend == "cuda" and model in ENSEMBLES
 
 
+def _hist_families(shape, backend, model):
+    return model in ENSEMBLES
+
+
 KNOBSPACE = (
     Knob("F16_HIST_NODE_BATCH_CPU", ("4", "6", "8", "12", "16"), "0",
          False, "fit", _cpu_hist,
@@ -116,6 +123,10 @@ KNOBSPACE = (
     Knob("F16_HIST_NODE_BATCH", ("64", "128"), "128",
          False, "fit", _device_hist,
          "card BFS window width of the hist grower (K1's window)"),
+    Knob("F16_HIST_BINS", ("32", "48", "64"), "64",
+         True, "fit", _hist_families,
+         "histogram resolution; candidate selection is bin-granular, so "
+         "this MOVES model outputs — winners must re-pass parity"),
 )
 
 
@@ -236,6 +247,10 @@ def audit_peak_mb(rows):
     return audit_envelope(rows)[0]
 
 
+# The window-width knobs, the ones the memory veto scales by.
+WIDTH_KNOBS = ("F16_HIST_NODE_BATCH_CPU", "F16_HIST_NODE_BATCH")
+
+
 def mem_vetoed(cand_env, peak_mb, cap_mb, audited_width=None):
     """Whether a candidate's window width would scale the audited plan
     envelope past the cap. The grower's per-step working set is ~linear
@@ -270,7 +285,7 @@ def width_verdicts(knobs, peak_mb, cap_mb, audited_width=None):
         "scaled_mb": round(peak_mb * int(v)
                            / float(audited_width or WIDTH_OF_JAX_AUDIT), 3),
         "vetoed": mem_vetoed({k.name: v}, peak_mb, cap_mb, audited_width)}
-        for k in knobs for v in k.domain}
+        for k in knobs if k.name in WIDTH_KNOBS for v in k.domain}
 
 
 # -- the search ----------------------------------------------------------
@@ -474,6 +489,36 @@ def subprocess_measure(fs_name, model_name, *, backend, n, n_trees,
     return measure
 
 
+def parity_subprocess_check(backend, *, timeout_s=3600, py=None,
+                            log=None):
+    """Parity oracle for parity-affecting winners: the port's full tier
+    (``python -m flake16_framework_tpu_torch.perf.parity --full --device
+    BACKEND``) in a child under the candidate env. Exit 0 is green. A
+    timeout or any other exit is red: never accept what did not provably
+    pass."""
+    py = py or sys.executable
+
+    def check(cand_env):
+        t0 = time.time()
+        try:
+            proc = subprocess.run(
+                [py, "-m", "flake16_framework_tpu_torch.perf.parity",
+                 "--full", "--device", backend], cwd=REPO,
+                env=_probe_env(cand_env), capture_output=True, text=True,
+                timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            if log:
+                log(f"  parity TIMEOUT ({timeout_s:.0f}s) under "
+                    f"{cand_env}")
+            return False
+        if log:
+            log(f"  parity {'green' if proc.returncode == 0 else 'RED'} "
+                f"in {time.time() - t0:.0f}s under {cand_env}")
+        return proc.returncode == 0
+
+    return check
+
+
 def probe_failed(probe):
     """Whether a ``subprocess_measure`` probe failed: a timeout, a
     nonzero exit, or no finite wall."""
@@ -581,6 +626,9 @@ def tune_main(argv, out=None):
                     help="%% fit-wall gain a winner must clear")
     ap.add_argument("--timeout", type=float, default=None,
                     help="per-probe child-process timeout (s)")
+    ap.add_argument("--parity-timeout", type=float, default=3600.0)
+    ap.add_argument("--no-parity-knobs", action="store_true",
+                    help="search results-neutral knobs only")
     ap.add_argument("--mem-cap-mb", type=float, default=3072.0)
     ap.add_argument("--dry-run", action="store_true",
                     help="print the candidate field, run nothing")
@@ -632,7 +680,9 @@ def tune_main(argv, out=None):
             shape = planner.plan_shape(
                 *fam, n=n, n_folds=n_folds,
                 tree_overrides={m: n_trees for m in ENSEMBLES})
-            knobs = applicable_knobs(shape, backend, fam[1])
+            knobs = applicable_knobs(
+                shape, backend, fam[1],
+                include_parity=not args.no_parity_knobs)
             field = candidates(knobs)
             summary["families"]["/".join(fam)] = {
                 "shape": perfdb.shape_sig(shape),
@@ -649,8 +699,9 @@ def tune_main(argv, out=None):
         out.write(json.dumps(summary) + "\n")
         return 0
 
-    # No registered knob is parity-affecting, and the port has no parity
-    # oracle: tune_family skips parity knobs when given no checker.
+    parity_check = None if args.no_parity_knobs else \
+        parity_subprocess_check(backend, timeout_s=args.parity_timeout,
+                                log=log)
     failed = 0
     for fam in fams:
         fs_name, model_name = fam
@@ -663,7 +714,9 @@ def tune_main(argv, out=None):
         res = tune_family(
             fs_name, model_name, backend=backend, n=n, n_trees=n_trees,
             n_folds=n_folds, measure=measure, rows=rows,
-            member_codes=codes.get(fam, ()), parity_check=None, min_gain_pct=args.min_gain,
+            member_codes=codes.get(fam, ()),
+            include_parity=not args.no_parity_knobs,
+            parity_check=parity_check, min_gain_pct=args.min_gain,
             cap_mb=args.mem_cap_mb, db=args.db, log=log)
         bad = [p for p in measure.probes if probe_failed(p)]
         failed += len(bad)

@@ -36,7 +36,7 @@ from flake16_framework_tpu_torch.ops import trees, treeshap
 from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
 from flake16_framework_tpu_torch.ops.resample import resample
 from flake16_framework_tpu_torch.parallel.planner import plan_explain_grid
-from flake16_framework_tpu_torch.parallel.sweep import SEED, SweepEngine
+from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
 from flake16_framework_tpu_torch.resilience import faults
 from flake16_framework_tpu_torch.resilience import inject as rinject
 from flake16_framework_tpu_torch.resilience import journal as rjournal
@@ -91,7 +91,7 @@ def _journal_fingerprint(engine, *, cv, max_depth, tree_overrides):
     data CRCs are over the host arrays: int32 labels, float32 features."""
     return {
         "schema": rjournal.SCHEMA,
-        "seed": SEED,
+        "seed": engine.seed,
         "cv": cv,
         "n_folds": engine.n_folds,
         "max_depth": max_depth,
@@ -213,7 +213,7 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
             f"elapsed)\n")
 
     obs.manifest_update(verb="scores", cv=cv, out_file=str(out_file),
-                        fused=fused, planner=planner)
+                        fused=fused, planner=planner, seed=engine.seed)
     obs.record_device_manifest(device, devices=None if devices is None
                                else engine.devices)
     try:

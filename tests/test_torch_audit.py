@@ -399,3 +399,33 @@ def test_cli_and_rules_import_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False"]
+
+
+def test_per_family_audits_a_sample_of_each_family(monkeypatch):
+    sample = rules_ir.family_sample(2)
+    # the audit fixture's sub-grid, in the canonical grid order
+    assert len(sample) == 12 and set(sample) == set(_subgrid())
+    fams = [(k[1], k[4]) for k in sample]
+    assert all(fams.count(f) == 2 for f in fams)
+    assert len(rules_ir.static_plans(configs=sample)) == len(
+        rules_ir.static_plans()) == 6
+    with pytest.raises(ValueError, match="at least 1"):
+        rules_ir.family_sample(0)
+    seen = []
+
+    def fake(**kw):
+        seen.append(kw.get("configs"))
+        return [], {"census": {"static": 6, "runtime": 6,
+                               "source": "executor", "match": True},
+                    "shap_census": None, "entries": [], "envelopes": [],
+                    "budget_mb": None, "backend": "cpu"}
+
+    monkeypatch.setattr(rules_ir, "run_audit", fake)
+    assert cli.audit_main(["--backend", "cpu", "--per-family", "2"],
+                          out=io.StringIO()) == 0
+    assert cli.lint_main(["--ir", "--backend", "cpu", "--per-family", "2",
+                          "--json"], out=io.StringIO()) == 0
+    assert cli.audit_main(["--backend", "cpu"], out=io.StringIO()) == 0
+    assert seen == [sample, sample, None]
+    with pytest.raises(cli.UsageError, match="--per-family"):
+        cli.lint_main(["--per-family", "2"], out=io.StringIO())

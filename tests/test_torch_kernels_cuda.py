@@ -39,6 +39,16 @@ HIST_CASES = [
     # an odd n: tree rows start off 16-byte boundaries (head and tail)
     pytest.param(dict(seed=7, n_tree=5, n=1001, n_feat=16, n_nodes=128,
                       n_bins=64), id="5-1001-16-128-64"),
+    # the bin counts of F16_HIST_BINS's arms, each at its widest window
+    # (kernels/hist.max_window): one, two, four and eight bins a lane
+    pytest.param(dict(seed=32, n_tree=4, n=4000, n_feat=16, n_nodes=128,
+                      n_bins=32), id="4-4000-16-128-32"),
+    pytest.param(dict(seed=48, n_tree=4, n=4000, n_feat=16, n_nodes=128,
+                      n_bins=48), id="4-4000-16-128-48"),
+    pytest.param(dict(seed=128, n_tree=4, n=4000, n_feat=16, n_nodes=113,
+                      n_bins=128), id="4-4000-16-113-128"),
+    pytest.param(dict(seed=256, n_tree=4, n=4000, n_feat=16, n_nodes=56,
+                      n_bins=256), id="4-4000-16-56-256"),
     *[pytest.param(kw, id=name) for name, kw in EDGE_CASES.items()],
 ]
 

@@ -330,9 +330,13 @@ def test_plan_grid_under_recorded_pad_equals_jax(tmp_path, pad, devices):
     ({"F16_HIST_NODE_BATCH": "4096"}, {}),
     ({"F16_HIST_NODE_BATCH": "0"}, {}),
     ({"F16_HIST_NODE_BATCH": "wide"}, {}),
-    ({"F16_HIST_REFINE_TILE": "512"}, {}),       # no refinement pass here
+    ({"F16_HIST_REFINE_TILE": "512"}, {}),       # no refinement tile here
     ({"F16_HIST_REFINE_TILE": "512", "F16_HIST_NODE_BATCH": "32"},
      {"node_batch": 32}),
+    # a parity-affecting knob never reaches a plan from a tuned row
+    ({"F16_HIST_BINS": "32"}, {}),
+    ({"F16_HIST_BINS": "48", "F16_HIST_NODE_BATCH": "64"},
+     {"node_batch": 64}),
 ])
 def test_tuned_fit_overrides_against_jax(tmp_path, knobs, want):
     db = str(tmp_path / "perfdb.jsonl")
@@ -367,6 +371,25 @@ def test_k1_window_bound():
     assert thist.smem_bytes(limit, HIST_BINS) <= thist._SMEM_LIMIT \
         < thist.smem_bytes(limit + 1, HIST_BINS)
     assert limit >= ttrees.NODE_BATCH["cuda"]
+
+
+@pytest.mark.parametrize("bins,width,want", [
+    ("32", "226", {"node_batch": 226}),
+    ("128", "113", {"node_batch": 113}),
+    ("128", "114", {}),                          # past K1's window at 128
+    ("256", "64", {}),                           # 56 nodes at 256
+])
+def test_tuned_width_bound_follows_the_exported_bins(tmp_path, monkeypatch,
+                                                     bins, width, want):
+    db = str(tmp_path / "perfdb.jsonl")
+    shape = _shape("Random Forest")
+    tperfdb.record_tuned("cpu", tperfdb.shape_sig(shape),
+                         tperfdb.model_kernel("Random Forest"),
+                         {"F16_HIST_NODE_BATCH": width}, {"fit_s": 1.0},
+                         path=db)
+    monkeypatch.setenv("F16_HIST_BINS", bins)
+    assert tperfdb.tuned_fit_overrides("cpu", shape, model="Random Forest",
+                                       path=db, env={}) == want
 
 
 @pytest.fixture(scope="module")

@@ -2,11 +2,11 @@
 JAX package's ``perf/tuner.py`` on the same inputs, on the CPU.
 
 The JAX registry also holds knobs the port has no reader for
-(``F16_HIST_REFINE_TILE``, ``F16_HIST_BINS``, ``F16_SHAP_TREE_CHUNK``),
-so the JAX side runs with its KNOBSPACE cut to the two shared window
-widths over the values the port registers (its card width stops at 128,
-inside K1's window) (or, for the parity loop, both sides with one test-only
-parity-affecting knob added). Held: the registry against the lint's
+(``F16_HIST_REFINE_TILE``, ``F16_SHAP_TREE_CHUNK``), so the JAX side runs
+with its KNOBSPACE cut to the knobs both read (the two window widths and
+the parity-affecting ``F16_HIST_BINS``) over the values the port
+registers (its card width stops at 128, inside K1's window); the parity
+loop runs on ``F16_HIST_BINS`` in both. Held: the registry against the lint's
 census; the candidate field and the env-pin precedence; the perfdb
 seeding (history walls, audit envelope, memory veto); successive
 halving, the compose rung and ``tune_family`` driven by one
@@ -35,7 +35,7 @@ from flake16_framework_tpu_torch.perf import tuner
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RF, ET, DT = "Random Forest", "Extra Trees", "Decision Tree"
 FS = "Flake16"
-SHARED = ("F16_HIST_NODE_BATCH_CPU", "F16_HIST_NODE_BATCH")
+SHARED = ("F16_HIST_NODE_BATCH_CPU", "F16_HIST_NODE_BATCH", "F16_HIST_BINS")
 
 
 @pytest.fixture(autouse=True)
@@ -259,15 +259,11 @@ def test_recorded_row_equal_jax_but_ts_and_crc(tmp_path, jax_shared):
     assert jperfdb.load(str(tmp_path / "port.jsonl")) == got[0]
 
 
-def test_parity_loop_equal_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(tuner, "KNOBSPACE", tuner.KNOBSPACE + (
-        _parity_knob(tuner, lambda b: b == "cpu"),))
-    monkeypatch.setattr(jtuner, "KNOBSPACE", tuple(
-        k for k in jtuner.KNOBSPACE if k.name in SHARED) + (
-        _parity_knob(jtuner, lambda b: b == "cpu"),))
-    table = {key(): 10.0, key(F16_TEST_PARITY="b"): 6.0,
+def test_parity_loop_equal_jax(tmp_path, monkeypatch, jax_shared):
+    # the real parity-affecting knob, F16_HIST_BINS, in both registries
+    table = {key(): 10.0, key(F16_HIST_BINS=32): 6.0,
              key(F16_HIST_NODE_BATCH_CPU=16): 8.0,
-             key(F16_HIST_NODE_BATCH_CPU=16, F16_TEST_PARITY="b"): 5.5}
+             key(F16_HIST_NODE_BATCH_CPU=16, F16_HIST_BINS=32): 5.5}
 
     def red_then_green():
         seen = []
@@ -284,7 +280,9 @@ def test_parity_loop_equal_jax(tmp_path, monkeypatch):
         jparity_check=jcheck)
     assert calls == jcalls and seen == jseen
     assert [r["reason"] for r in res.rejected] == ["parity"]
-    assert res.winner_env == {"F16_TEST_PARITY": "b"}
+    assert res.winner_env == {"F16_HIST_BINS": "32"}
+    assert seen == [{"F16_HIST_BINS": "32", "F16_HIST_NODE_BATCH_CPU": "16"},
+                    {"F16_HIST_BINS": "32"}]
     for field in ("winner", "winner_env", "wall_s", "gain_pct", "walls",
                   "rejected"):
         assert getattr(res, field) == getattr(jres, field), field
@@ -293,23 +291,33 @@ def test_parity_loop_equal_jax(tmp_path, monkeypatch):
     measure, calls = table_measure(table, 10.5)
     tuner.tune_family(FS, RF, backend="cpu", n=400, n_trees=25,
                       n_folds=10, measure=measure, record=False)
-    assert "F16_TEST_PARITY" not in {k for env, _ in calls for k, _ in env}
+    assert "F16_HIST_BINS" not in {k for env, _ in calls for k, _ in env}
+    # a test-only parity knob on the CPU alone: skipped on the card
+    monkeypatch.setattr(tuner, "KNOBSPACE", tuner.KNOBSPACE + (
+        _parity_knob(tuner, lambda b: b == "cpu"),))
+    shape = planner.plan_shape(FS, RF, n=400, n_folds=10)
+    assert "F16_TEST_PARITY" not in {
+        k.name for k in tuner.applicable_knobs(shape, "cuda", RF, env={})}
 
 
 def test_k1_width_veto(tmp_path):
     """No registered card width exceeds the widest window K1 holds in
-    shared memory at the port's bins, so the field on ``cuda`` is the
-    default and 64 (the JAX package's 256 is not registered)."""
+    shared memory at any registered bin count, so the field on ``cuda`` is
+    the default, 64 (the JAX package's 256 is not registered) and, with
+    a parity oracle, the two other bin counts."""
     from flake16_framework_tpu_torch.constants import HIST_BINS
     from flake16_framework_tpu_torch.kernels.hist import max_window
 
     assert max_window(HIST_BINS) == 226
     (knob,) = [k for k in tuner.KNOBSPACE if k.name == "F16_HIST_NODE_BATCH"]
-    assert max(int(v) for v in knob.domain) <= max_window(HIST_BINS)
+    (bins,) = [k for k in tuner.KNOBSPACE if k.name == "F16_HIST_BINS"]
+    for b in bins.domain:
+        assert max(int(v) for v in knob.domain) <= max_window(int(b))
     shape = planner.plan_shape(FS, RF, n=4000, n_folds=10)
     knobs = tuner.applicable_knobs(shape, "cuda", RF, env={})
     assert [n for n, _ in tuner.candidates(knobs)] == [
-        "base", "F16_HIST_NODE_BATCH=64"]
+        "base", "F16_HIST_NODE_BATCH=64", "F16_HIST_BINS=32",
+        "F16_HIST_BINS=48"]
     logs = []
     measure, calls = table_measure({key(): 10.0}, 9.0)
     res = tuner.tune_family(FS, RF, backend="cuda", n=4000, n_trees=100,
@@ -339,9 +347,10 @@ def test_tune_without_cuda_raises(monkeypatch):
         "FlakeFlagger/Random Forest"]
 
 
-def test_dry_run_field_equal_jax(jax_shared):
+def test_dry_run_field_equal_jax(jax_shared, flags=()):
     buf, jbuf = io.StringIO(), io.StringIO()
-    argv = ["--dry-run", "--backend", "cpu", "--n", "400", "--trees", "25"]
+    argv = ["--dry-run", "--backend", "cpu", "--n", "400", "--trees",
+            "25", *flags]
     assert tuner.tune_main(argv, out=buf) == 0
     assert jtuner.tune_main(argv, out=jbuf) == 0
     rec, jrec = json.loads(buf.getvalue()), json.loads(jbuf.getvalue())
@@ -349,6 +358,15 @@ def test_dry_run_field_equal_jax(jax_shared):
     for fam, got in rec["families"].items():
         want = jrec["families"][fam]
         assert got == want
+
+
+def test_dry_run_without_parity_knobs_equal_jax(jax_shared):
+    test_dry_run_field_equal_jax(jax_shared, flags=["--no-parity-knobs"])
+    buf = io.StringIO()
+    tuner.tune_main(["--dry-run", "--backend", "cpu", "--no-parity-knobs"],
+                    out=buf)
+    for fam in json.loads(buf.getvalue())["families"].values():
+        assert not any("F16_HIST_BINS" in c for c in fam["candidates"])
 
 
 def test_failed_probe_fails_tune(monkeypatch):
@@ -369,7 +387,9 @@ def test_failed_probe_fails_tune(monkeypatch):
                             "--trees", "4"], out=buf)
     rec = json.loads(buf.getvalue())["families"]["Flake16/Random Forest"]
     assert code == 1 and rec["winner"] == "base"
-    assert rec["failed_probes"] == 7 and len(rec["probes"]) == 9
+    # base, five CPU widths and two bin counts: 8 + 4 + 3 probes, all
+    # failed but the base's three
+    assert rec["failed_probes"] == 12 and len(rec["probes"]) == 15
 
 
 def test_tuner_and_analysis_import_no_torch():
