@@ -241,6 +241,7 @@ import io
 import json
 import os
 import pickle
+import platform
 import re
 import subprocess
 import sys
@@ -1696,7 +1697,78 @@ def run_shap_path(tmp, tj):
                     "local_accuracy_max_err": acc_err,
                     "max_abs_phi": float(np.abs(values).max()),
                     "n_nodes_max": int(r["forest"].n_nodes.max())})
+    res[0]["cext"] = check_cext(dict(results[0],
+                                     config="/".join(SHAP_CONFIGS[0])))
     return launches, res, wall
+
+
+def _cpu_model():
+    """The host CPU: /proc/cpuinfo's model name, else its vendor, family
+    and model, else ``lscpu``'s model name, else the machine type; with
+    the cores this process may use."""
+    info = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as fd:
+            for line in fd:
+                key, _, value = line.partition(":")
+                if value.strip() not in ("", "unknown"):
+                    info.setdefault(key.strip(), value.strip())
+    name = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model")
+        if info.get(k))
+    if not name:
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), None)
+    name = name or platform.processor() or platform.machine()
+    return f"{name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def check_cext(result, n_samples=64):
+    """The host C++ Tree SHAP baseline (``native/baseline.py``), built on
+    this host, on one forest of the shap path converted from the port's
+    ``Forest`` (f64, no rescaling) for ``n_samples`` of its samples,
+    against K2's values (``treeshap.forest_shap_class0``) on the same
+    forest and samples within SHAP_TOL of max|K2|. Walls: the module's
+    build and load, the C++ call, and the K2 call's second run
+    (synchronised). A record for a SHAP ratio against the card, not a
+    claim."""
+    from flake16_framework_tpu_torch import native
+    from flake16_framework_tpu_torch.native import baseline
+    from flake16_framework_tpu_torch.ops import treeshap, trees
+
+    t_check = time.time()
+    forest, x = result["forest"], result["x"][:n_samples].contiguous()
+    built = not native._so_path("treeshap_cext").exists()
+    t0 = time.time()
+    native.load("treeshap_cext")
+    build_s = time.time() - t0
+    host = trees.Forest(*(t.cpu() for t in forest[:-1]), forest.max_depth)
+    ft = baseline.forest_trees(host)
+    xh = x.cpu().numpy()
+    t0 = time.time()
+    phi = baseline.forest_shap_class0_cext(ft, xh)
+    cext_s = time.time() - t0
+    treeshap.forest_shap_class0(forest, x)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    k2 = treeshap.forest_shap_class0(forest, x)
+    torch.cuda.synchronize()
+    k2_s = time.time() - t0
+    k2 = k2.double().cpu().numpy()
+    ref = float(np.abs(k2).max())
+    err = float(np.abs(phi - k2).max())
+    _require(err <= SHAP_TOL[0] * ref + SHAP_TOL[1],
+             f"cext against K2: {err} off (max {ref})")
+    return {"config": result["config"], "trees": len(ft),
+            "samples": n_samples,
+            "node_slots": int(forest.feature.shape[1]),
+            "built": built, "build_s": build_s, "cext_s": cext_s,
+            "k2_s": k2_s, "max_abs_err": err, "max_abs_k2": ref,
+            "host_cpu": _cpu_model(), "wall_s": time.time() - t_check}
 
 
 @contextlib.contextmanager
@@ -2204,6 +2276,67 @@ def check_served_graphs(svc, registry, feats, buckets=SERVE_BUCKETS):
                             "eager_ms": [e1, e2], "replay_ms": [r1, r2]})
     return {"values": rows, "concurrent": concurrent,
             "reload_captures": recaptured, "eager_vs_replay": timings}
+
+
+def check_windows_graph(store, model, feats, bucket=32):
+    """A predict graph of ``model`` captured under
+    ``F16_PREDICT_IMPL=windows`` at one bucket, under an owner of its own
+    beside the gather graph the store captured at warm: the replay
+    against the eager windows and gather bodies (``traceable()``),
+    bitwise; each walk's eager body (with the batch's copy to the card)
+    and replay timed in turns (eager, replay, replay, eager); the
+    kernels a replay of each graph runs, by the profiler; the windows
+    plan's windows and routing steps."""
+    from flake16_framework_tpu_torch.ops import trees
+
+    t_check = time.time()
+    cache = store._caches["predict"]
+    prep = store._prepare(model)
+    owner = f"{model.model_id}#windows"
+    rs = np.random.RandomState(11)
+    pick = rs.choice(len(feats), bucket, replace=False)
+    x = np.ascontiguousarray(feats[pick][:, list(model.cols)],
+                             dtype=np.float32)
+    body = cache.traceable()
+    with _env({"F16_PREDICT_IMPL": "windows"}):
+        t0 = time.time()
+        cache.warm(owner, prep, x)
+        capture_s = time.time() - t0
+        replay = cache(owner, prep, x)
+        windows = body(prep, torch.as_tensor(x, device=store.device))
+    gather = body(prep, torch.as_tensor(x, device=store.device))
+    gather_replay = cache(model.model_id, prep, x)
+    _require(torch.equal(replay, windows) and torch.equal(replay, gather)
+             and torch.equal(gather_replay, gather),
+             f"{model.model_id} predict@{bucket}: the windows replay, the "
+             f"eager windows and gather bodies differ")
+    timings, owners = {}, {"windows": owner, "gather": model.model_id}
+    for walk, owner_of in owners.items():
+        with _env({"F16_PREDICT_IMPL": walk}):
+            def run_eager():
+                body(prep, torch.as_tensor(x, device=store.device))
+
+            def run_replay():
+                cache(owner_of, prep, x)
+
+            e1 = _timed_calls(run_eager, reps=10)
+            r1 = _timed_calls(run_replay)
+            r2 = _timed_calls(run_replay)
+            e2 = _timed_calls(run_eager, reps=10)
+            kernels = _profiled(run_replay, host=False)
+        copies = [k for k in kernels if k[1].startswith(("Memcpy", "Memset"))]
+        timings[walk] = {
+            "eager_ms": [e1, e2], "replay_ms": [r1, r2],
+            "replay_kernels": sum(k[2] for k in kernels)
+            - sum(k[2] for k in copies),
+            "replay_copies": sum(k[2] for k in copies),
+            "replay_device_ms": sum(k[0] for k in kernels)}
+    plan = prep.walk_plans[trees.predict_window()]
+    cache.drop(owner)
+    return {"model": model.model_id, "bucket": bucket, "bitwise": True,
+            "capture_s": capture_s, "n_windows": len(plan.steps),
+            "routing_steps": sum(n for _, n in plan.steps),
+            "wall_s": time.time() - t_check, **timings}
 
 
 def _serving_rows(registry, feats, keys, n_samples):
@@ -3306,6 +3439,50 @@ def check_exact_fold(tests_file):
         "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                         for ms, n, c in kernels[:10]],
     }
+
+
+def check_windows_folds(tests_file):
+    """Predict's windows walk on the card: fold 0 of the first RF scores
+    config and of the first DT config, each fit from the sweep's own
+    tensors and key, predicted on the fold's samples by both walks:
+    ``predict_proba`` bitwise, ``predict`` equal under
+    ``F16_PREDICT_IMPL=windows``. Each walk timed by CUDA events (the
+    windows walk on its kept plan), with the plan's windows and routing
+    steps."""
+    from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
+    from flake16_framework_tpu_torch.ops import trees
+    from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
+
+    t_check = time.time()
+    engine = SweepEngine(*tests_to_arrays(load_tests(tests_file)))
+    out = []
+    for config, fit_name in ((MAIN_CONFIGS[0], "fit_forest_hist"),
+                             (DT_CONFIGS[0], "fit_forest")):
+        args, kwargs = first_fold(engine, config, fit_name, run_fit=False)
+        forest = getattr(trees, fit_name)(*args, **kwargs)
+        x = args[0]
+        gather = trees.predict_proba(forest, x, impl="gather")
+        plans = {}
+        windows = trees.predict_proba(forest, x, impl="windows", plans=plans)
+        _require(torch.equal(gather, windows),
+                 f"{config} fold 0: the windows walk differs from gather")
+        with _env({"F16_PREDICT_IMPL": "windows"}):
+            by_windows = trees.predict(forest, x)
+        _require(torch.equal(by_windows, trees.predict(forest, x)),
+                 f"{config} fold 0: predict differs under windows")
+        plan = plans[trees.predict_window()]
+        out.append({
+            "config": "/".join(config), "fold": 0, "bitwise": True,
+            "trees": forest.feature.shape[0], "samples": int(x.shape[0]),
+            "n_nodes_max": int(forest.n_nodes.max()),
+            "windows": len(plan.steps),
+            "routing_steps": sum(n for _, n in plan.steps),
+            "gather_ms": _cuda_ms(lambda: trees.predict_proba(
+                forest, x, impl="gather"), reps=5),
+            "windows_ms": _cuda_ms(lambda: trees.predict_proba(
+                forest, x, impl="windows", plans=plans), reps=5),
+            "wall_s": time.time() - t_check})
+    return out
 
 
 def profile_config(tests_file, config, wall_s):
@@ -4495,6 +4672,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from flake16_framework_tpu_torch.kernels import build
+    from flake16_framework_tpu_torch.serve import model_id_for
     from flake16_framework_tpu_torch.utils.synth import make_tests_json
 
     phases, mark = {}, [time.time()]
@@ -4577,6 +4755,7 @@ def main():
         lap("small_reference")
         print(f"small reference: {small}", flush=True)
         exact = check_exact_fold(tj)
+        windows_folds = check_windows_folds(tj)
         lap("exact_fold")
         print(f"exact grower {exact['config']} fold 0: card forest bitwise "
               f"== CPU, {exact['n_nodes']} nodes, {exact['levels']} levels "
@@ -4587,6 +4766,14 @@ def main():
               f"({exact['launches_per_level']:.1f} a level), busy "
               f"{exact['device_busy_ms']:.2f} ms, idle "
               f"{exact['device_idle_share']:.1%}", flush=True)
+        for w in windows_folds:
+            print(f"predict windows walk {w['config']} fold 0 ({smi}): "
+                  f"bitwise == gather on {w['samples']} samples, "
+                  f"{w['trees']} trees, {w['n_nodes_max']} nodes at most; "
+                  f"{w['windows']} windows, {w['routing_steps']} routing "
+                  f"steps; windows {w['windows_ms']:.3f} ms, gather "
+                  f"{w['gather_ms']:.3f} ms; check {w['wall_s']:.2f} s "
+                  f"since its start", flush=True)
 
         score_launches, configs, journal, ref = run_scores_path(tmp, tj)
         lap("scores_path")
@@ -4705,6 +4892,14 @@ def main():
                   f"{c['local_accuracy_max_err']:.3g}", flush=True)
         print(f"shap path launches: {shap_launches}, wall {shap_wall:.2f} s",
               flush=True)
+        cx = shap_cfgs[0]["cext"]
+        print(f"cext baseline {cx['config']} ({smi}; host {cx['host_cpu']}):"
+              f" {cx['trees']} trees x {cx['samples']} samples, "
+              f"{'built' if cx['built'] else 'loaded'} in "
+              f"{cx['build_s']:.2f} s, C++ {cx['cext_s']:.3f} s, K2 path "
+              f"{cx['k2_s']:.4f} s; max err against K2 "
+              f"{cx['max_abs_err']:.3g} (max {cx['max_abs_k2']:.3g}); "
+              f"check {cx['wall_s']:.2f} s", flush=True)
         tel["shap_max_abs_diff"] = check_telemetry_shap(
             tel_shap, os.path.join(tmp, "shap.pkl"))
         print(f"telemetry path SHAP values bitwise == shap path's (max "
@@ -4755,6 +4950,9 @@ def main():
                                                   serve_feats)
             serve["treeshap_unit"] = serve_unit_report(
                 serve_reg, serve_feats, serve["graphs"])
+            serve["windows_graph"] = check_windows_graph(
+                svc.store, serve_reg.get(model_id_for(GRID_CONFIGS[0])),
+                serve_feats)
             lap("serve_checks")
         finally:
             svc.stop()
@@ -4806,6 +5004,20 @@ def main():
                   f"{k['p99_ms']:.3f} ms (client side), {k['dispatches']} "
                   f"microbatches", flush=True)
         print_graphs(serve, smi)
+        wg = serve["windows_graph"]
+        print(f"serve predict graph under windows {wg['model']}@"
+              f"{wg['bucket']} ({smi}): replay == eager windows == eager "
+              f"gather bitwise; captured in {wg['capture_s']:.3f} s; "
+              f"{wg['n_windows']} windows, {wg['routing_steps']} routing "
+              f"steps; check {wg['wall_s']:.2f} s; " + "; ".join(
+                  f"{walk} eager {wg[walk]['eager_ms'][0]:.3f}/"
+                  f"{wg[walk]['eager_ms'][1]:.3f} ms, replay "
+                  f"{wg[walk]['replay_ms'][0]:.3f}/"
+                  f"{wg[walk]['replay_ms'][1]:.3f} ms, a replay runs "
+                  f"{wg[walk]['replay_kernels']} kernels and "
+                  f"{wg[walk]['replay_copies']} copies "
+                  f"({wg[walk]['replay_device_ms']:.3f} ms on the device)"
+                  for walk in ("windows", "gather")), flush=True)
         worst = {k: max(r[k] for r in serve["values"]) for k in (
             "predict_max_abs_err", "shap_max_abs_err",
             "local_accuracy_max_err")}
@@ -4888,6 +5100,7 @@ def main():
               "kernels": [k1, k2], "launches_by_path": paths,
               "hist_real_steps": real,
               "small_reference": small, "exact_fold": exact,
+              "windows_folds": windows_folds,
               "scores_path": configs, "scores_path_journal": journal,
               "model_arms": arms, "parity_full": parity_rep,
               "telemetry_path": tel,

@@ -130,7 +130,7 @@ _COMMANDS = ("setup", "container", "run", "tests", "scores", "resume",
 _REFUSED = {
     "bench": "bench --gate gates the JAX package's BENCH_r*.json "
              "trajectory; the port's benchmark is not built yet "
-             "(ROADMAP.md §A 3)",
+             "(ROADMAP.md §A 4)",
 }
 
 

@@ -93,9 +93,9 @@ RULES = {r.id: r for r in (
 # the inclusive minimum, or an inclusive (minimum, maximum) pair; "str":
 # free-form (censused but not value-checked).
 # The census of the variables the port reads: the JAX package's
-# registrations with no reader here (the SHAP block, refinement tile,
-# predict and hist-implementation knobs) are left out, since a declared
-# knob no module reads is G106's stale entry.
+# registrations with no reader here (the SHAP block, refinement tile and
+# hist-implementation knobs) are left out, since a declared knob no module
+# reads is G106's stale entry.
 KNOBS = {
     "F16_TELEMETRY": ("str", None),
     "F16_TELEMETRY_HEARTBEAT_S": ("float", 0.0),
@@ -117,6 +117,10 @@ KNOBS = {
     "F16_ET_DRAW": ("enum", ("value", "rank")),
     "F16_FEATURE_QUOTA": ("enum", ("sklearn", "informative")),
     "F16_PCA_IMPL": ("enum", ("", "svd", "eigh")),
+    # predict's walk and the windows walk's width (ops/trees.py
+    # predict_impl, predict_window), as the JAX package declares them.
+    "F16_PREDICT_IMPL": ("enum", ("gather", "windows")),
+    "F16_PREDICT_WINDOW": ("int", 1),
     # observability: per-request trace sampling rate (obs/core.py), the
     # torch.profiler capture directory of the plan and serve hooks, and
     # the flight ring's arming path (obs/flight.py).

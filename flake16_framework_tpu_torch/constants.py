@@ -66,3 +66,8 @@ HIST_BINS = 64
 ET_DRAW = "value"
 HIST_REFINE = "exact"
 FEATURE_QUOTA = "informative"
+
+# Predict's walk with F16_PREDICT_IMPL and F16_PREDICT_WINDOW unset, the
+# JAX package's defaults (ops/trees.py reads both at each call).
+PREDICT_IMPL = "gather"
+PREDICT_WINDOW = 128

@@ -35,3 +35,10 @@ def tests_to_arrays(tests):
     project_ids = np.asarray([name_to_id[p] for p in projects], dtype=np.int32)
 
     return features, labels, projects, project_names, project_ids
+
+
+def load_feat_lab_proj(flaky_label, feature_set, tests_file):
+    """The reference's loader (experiment.py:410-427): (features[:,
+    feature_set], labels == flaky_label, projects)."""
+    features, labels, projects, _, _ = tests_to_arrays(load_tests(tests_file))
+    return features[:, list(feature_set)], labels == flaky_label, projects

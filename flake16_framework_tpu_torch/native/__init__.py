@@ -17,6 +17,8 @@ runs or raises. Imports no torch (the collation is torch-free).
 Modules:
 - ``collate_fast``: the collation's numbits decode and coverage feature
   sums (``runner/collate.py``).
+- ``treeshap_cext``: the host C++ Tree SHAP baseline, shap 0.40's
+  recursive EXTEND/UNWIND in f64 (``baseline.py``); no verb runs it.
 """
 
 import hashlib

@@ -1001,9 +1001,34 @@ def fit_forest(x, y, w, key, *, n_trees, bootstrap, random_splits,
     return Forest(*(f[0] for f in forest[:-1]), max_depth)
 
 
-def _leaf_probs(forest, x):
-    """Each tree's leaf class distribution for each sample, [T, S, 2]:
-    ``max_depth + 1`` levels of per-tree table lookups."""
+def predict_impl(impl=None):
+    """Predict's walk: ``impl``, else ``F16_PREDICT_IMPL``, else "gather"
+    (read at each call). "gather" looks each sample's node up in the
+    tables once a level; "windows" sweeps node-id windows
+    (``_walk_windows``). Both stop every sample at the same leaf, so their
+    results are bitwise equal."""
+    if impl is None:
+        impl = os.environ.get("F16_PREDICT_IMPL", constants.PREDICT_IMPL)
+    return _checked("F16_PREDICT_IMPL", impl, ("gather", "windows"))
+
+
+def predict_window():
+    """The windows walk's width: ``F16_PREDICT_WINDOW``, else 128 (read at
+    each call); a whole number >= 1, else ValueError."""
+    raw = os.environ.get("F16_PREDICT_WINDOW", str(constants.PREDICT_WINDOW))
+    try:
+        width = int(str(raw).strip())
+    except ValueError:
+        width = 0
+    if width < 1:
+        raise ValueError(f"F16_PREDICT_WINDOW must be a whole number >= 1, "
+                         f"got {raw!r}")
+    return width
+
+
+def _walk_gather(forest, x):
+    """Each tree's leaf id for each sample, [T, S] int64: ``max_depth +
+    1`` levels of per-tree table lookups."""
     n_tree = forest.feature.shape[0]
     s = x.shape[0]
     xt = x.T.contiguous()
@@ -1018,28 +1043,152 @@ def _leaf_probs(forest, x):
         nxt = torch.where(xv <= forest.threshold.gather(1, node),
                           left.gather(1, node), right.gather(1, node))
         node = torch.where(f < 0, node, nxt)
+    return node
+
+
+class WindowPlan(NamedTuple):
+    """The windows walk's static schedule for one forest: the width, and
+    ``(k, steps)`` for each window [k*W, (k+1)*W) that holds an internal
+    node, ``steps`` the span of those nodes' depths across the trees."""
+
+    window: int
+    steps: tuple
+
+
+# Elements of the per-window tables ([trees, W, S]) that one chunk of
+# trees holds at most; the walk takes the trees in chunks under it.
+WINDOW_TABLE_ELEMS = 1 << 24
+
+
+def window_plan(forest, window):
+    """The ``WindowPlan`` of ``forest`` at ``window``, with one host read.
+
+    A sample descends one level a routing step and leaves a window at a
+    leaf or at an id past the window; ids grow from parent to child in
+    both growers, so the internal nodes a sample passes in a window have
+    distinct depths within the window's span, and that many steps route
+    every sample resident in it. Extra steps move nobody. Node depths come
+    from parent pointers by pointer jumping (log2 of the depth bound
+    rounds). Raises inside a CUDA graph capture, where a host read is an
+    error: make the plan before the capture (``predict_proba(plans=)``)."""
+    feature = forest.feature
+    if feature.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the windows walk's plan reads the host: make "
+                           "it before the capture (predict_proba(plans=))")
+    n_tree, m = feature.shape
+    ids = torch.arange(m, device=feature.device).expand(n_tree, m)
+    internal = (feature >= 0) & (ids < forest.n_nodes[:, None])
+    # Each child's parent; the root and the unused slots point to
+    # themselves. Leaves write to a spare column, which is dropped.
+    parent = torch.cat([ids, ids[:, :1]], 1).contiguous()
+    for child in (forest.left, forest.right):
+        parent.scatter_(1, torch.where(internal, child.to(torch.int64), m),
+                        ids)
+    anc = parent[:, :m].contiguous()
+    depth = (anc != ids).to(torch.int64)
+    for _ in range(max(1, int(forest.max_depth)).bit_length()):
+        depth, anc = depth + depth.gather(1, anc), anc.gather(1, anc)
+    n_win = -(-m // window)
+    pad = (0, n_win * window - m)
+    lo = torch.nn.functional.pad(torch.where(internal, depth, m), pad,
+                                 value=m)
+    hi = torch.nn.functional.pad(torch.where(internal, depth, -1), pad,
+                                 value=-1)
+    span = (hi.view(n_tree, n_win, window).amax((0, 2))
+            - lo.view(n_tree, n_win, window).amin((0, 2)) + 1)
+    steps = span.clamp(min=0).tolist()
+    return WindowPlan(window, tuple((k, n) for k, n in enumerate(steps)
+                                    if n))
+
+
+def _walk_windows(forest, x, plan):
+    """Each tree's leaf id for each sample, [T, S] int64, by the JAX
+    package's windows formulation: for each window of ``plan``, select
+    each sample's value of each node's feature (an index select of x, so
+    the comparison sees x's exact values, as the JAX walk's matmul under
+    ``Precision.HIGHEST`` does), build the next-node table [T, W, S], then
+    route the samples resident in the window ``steps`` times. The node
+    tables are padded to a whole window with leaf-like entries."""
+    n_tree, m = forest.feature.shape
+    width = plan.window
+    s = x.shape[0]
+    pad = (0, -m % width)
+    feature = torch.nn.functional.pad(forest.feature, pad, value=-1)
+    threshold = torch.nn.functional.pad(forest.threshold, pad)
+    left = torch.nn.functional.pad(forest.left, pad, value=-1)
+    right = torch.nn.functional.pad(forest.right, pad, value=-1)
+    xt = x.T.contiguous()
+    chunk = max(1, WINDOW_TABLE_ELEMS // (width * max(s, 1)))
+    parts = []
+    for t0 in range(0, n_tree, chunk):
+        trees_c = slice(t0, t0 + chunk)
+        node = torch.zeros((min(chunk, n_tree - t0), s), dtype=torch.int64,
+                           device=x.device)
+        for k, n_steps in plan.steps:
+            win = slice(k * width, (k + 1) * width)
+            featw = feature[trees_c, win]
+            leafw = featw < 0
+            xsel = xt[featw.clamp(min=0)]                       # [Tc, W, S]
+            nxtw = torch.where(xsel <= threshold[trees_c, win, None],
+                               left[trees_c, win, None],
+                               right[trees_c, win, None])
+            for _ in range(n_steps):
+                rel = node - k * width
+                relc = rel.clamp(0, width - 1)
+                movable = (rel >= 0) & (rel < width) & \
+                    ~leafw.gather(1, relc)
+                nxt = nxtw.gather(1, relc[:, None, :])[:, 0]
+                node = torch.where(movable, nxt.to(torch.int64), node)
+        parts.append(node)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _leaf_probs(forest, x, impl=None, plans=None):
+    """Each tree's leaf class distribution for each sample, [T, S, 2],
+    through the walk ``predict_impl(impl)`` names. ``plans`` ({width:
+    WindowPlan}) keeps the windows walk's plans of this forest across
+    calls."""
+    if predict_impl(impl) == "gather":
+        node = _walk_gather(forest, x)
+    else:
+        width = predict_window()
+        plan = None if plans is None else plans.get(width)
+        if plan is None:
+            plan = window_plan(forest, width)
+            if plans is not None:
+                plans[width] = plan
+        node = _walk_windows(forest, x, plan)
     v = forest.value.gather(1, node[..., None].expand(-1, -1, 2))
     return v / torch.clamp(v.sum(-1, keepdim=True), min=1e-30)
 
 
 def _tree_mean(probs):
-    """Mean over the tree axis (-3) of [..., T, S, 2], summed in tree
-    order, as the JAX package's reduce does."""
+    """Mean over the tree axis (-3) of [..., T, S, 2] with the bits of the
+    JAX package's ``jnp.mean`` on XLA:CPU: the trees summed in XLA's
+    windowed order (``preprocess._colsum``), then multiplied by
+    float32(1/T), the constant XLA puts in place of ``/ T``."""
+    from flake16_framework_tpu_torch.ops.preprocess import _colsum
+
     n_tree = probs.shape[-3]
-    total = probs[..., 0, :, :]
-    for t in range(1, n_tree):
-        total = total + probs[..., t, :, :]
-    return total / n_tree
+    rows = probs.movedim(-3, 0)
+    total = _colsum(rows.reshape(n_tree, -1)).view(rows.shape[1:])
+    one = torch.ones((), dtype=total.dtype, device=total.device)
+    return total * (one / torch.full_like(one, float(n_tree)))
 
 
-def predict_proba(forest, x):
+def predict_proba(forest, x, impl=None, plans=None):
     """Mean over trees of the leaf class distributions (sklearn soft
-    vote), [S, 2]."""
-    return _tree_mean(_leaf_probs(forest, x))
+    vote), [S, 2]. ``impl`` names the walk (``predict_impl``; the knobs
+    are read at each call). The windows walk makes its plan with one host
+    read unless ``plans`` ({width: WindowPlan}, filled here) holds it: a
+    caller that captures the walk into a CUDA graph passes the same dict
+    to a run before the capture, so that the capture reads nothing."""
+    return _tree_mean(_leaf_probs(forest, x, impl, plans))
 
 
 def predict(forest, x):
-    """Binary predict: class 1 iff p1 > p0 (a tie goes to class 0)."""
+    """Binary predict: class 1 iff p1 > p0 (a tie goes to class 0),
+    through ``predict_proba``'s walk."""
     p = predict_proba(forest, x)
     return p[:, 1] > p[:, 0]
 
@@ -1048,7 +1197,8 @@ def predict_batch(forest, x):
     """``predict`` of each fold's forest (a ``Forest`` with [G, T, ...]
     leading axes, as the JAX package's ``predict_batch`` takes it) against
     a shared matrix, the G x T trees traversed as one batch: [G, S] bool,
-    row g equal to ``predict`` of fold g's forest."""
+    row g equal to ``predict`` of fold g's forest. The windows walk plans
+    over the whole batch (the widest depth span of each window)."""
     n_fold, n_tree = forest.feature.shape[:2]
     flat = Forest(*(f.reshape(n_fold * n_tree, *f.shape[2:])
                     for f in forest[:-1]), forest.max_depth)
@@ -1081,4 +1231,5 @@ fit_forest_hist = costs.instrument(fit_forest_hist, "trees.fit_forest_hist",
                                    cost_fields=_fit_hist_cost_fields)
 fit_forest = costs.instrument(fit_forest, "trees.fit_forest",
                               static_argnames=_FIT_STATIC)
-predict_proba = costs.instrument(predict_proba, "trees.predict_proba")
+predict_proba = costs.instrument(predict_proba, "trees.predict_proba",
+                                 static_argnames=("impl",))

@@ -128,6 +128,11 @@ SEED = 0  # the config keys' default root seed, as the reference's
 # allocated on an H100 (``chip_smoke.py``); about 8 GB for 200 exact ones.
 TREES_IN_FLIGHT = {"hist": 1000, "exact": 200}
 
+# The stage walls ``run_config(timings=)`` fills, under the JAX package's
+# names (its chunk and concat stages have no counterpart here).
+_STAGE_WALLS = ("tree_keys_s", "prep_s", "fit_total_s", "score_s",
+                "counts_to_host_s")
+
 
 def _fit_cost_fields(spec, *, n, n_feat, cap, n_folds, grower,
                      device_type):
@@ -474,16 +479,28 @@ class SweepEngine:
                                              self.projects)
         return [t_train, t_test, scores, scores_total]
 
-    def run_config(self, config_keys):
+    def run_config(self, config_keys, timings=None):
         """One config's CV; returns [t_train, t_test, scores,
         scores_total] (per-fold mean walls). With ``fused``, the config
         runs through the fold-batched fit and only its config record is
-        journaled, as in the JAX package's fused path."""
+        journaled, as in the JAX package's fused path.
+
+        ``timings``, a dict, is filled with the walls of the stages the
+        port has, under the JAX package's names, summed over the folds:
+        ``tree_keys_s`` (the fold keys), ``prep_s`` (the preprocessing the
+        folds share), ``fit_total_s`` (resample and fit, ``prep_s``
+        included), ``score_s`` (predict and counts on the device) and
+        ``counts_to_host_s``. The device is synchronised after each stage
+        in this timed mode only, and a fused engine runs the staged path
+        instead, so the split stays measurable. Scores are the same bits
+        either way."""
         config_keys = tuple(config_keys)
         name = "/".join(config_keys)
         family = (config_keys[1], config_keys[4])
         n_trees = self._spec(config_keys[4]).n_trees
-        if self.fused:
+        if timings is not None:
+            timings.update(dict.fromkeys(_STAGE_WALLS, 0.0))
+        if self.fused and timings is None:
             with obs.span("scores.config", key=(*family, "fused"),
                           counts=launch_counts, mode="fused", stage="fused",
                           config=name):
@@ -502,7 +519,9 @@ class SweepEngine:
         cfg_index = self._index[config_keys]
         train_mask, test_mask = self._masks[config_keys[0]]
         t_train = t_test = 0.0
+        t0 = time.time()
         fold_keys = self._fold_keys(config_keys)
+        self._stage_wall(timings, "tree_keys_s", t0)
         tree_chunk = self.dispatch_trees
         # Journal resume state: folds already journaled for this config
         # with matching key bytes are trusted and not refit.
@@ -528,6 +547,7 @@ class SweepEngine:
                 t0 = time.time()
                 if p is None:
                     p = self._prepare(config_keys)
+                    self._stage_wall(timings, "prep_s", t0)
                 forest = fns["fit"](p, fold_keys[f], train_mask[f],
                                     tree_chunk)
                 if self.device.type == "cuda":
@@ -537,8 +557,9 @@ class SweepEngine:
                 t1 = time.time()
             with obs.span("scores.score", key=(*family, "staged"),
                           stage="predict", config=name, fold=f):
-                counts_by_fold[f] = fns["score"](p, forest,
-                                                 test_mask[f:f + 1])
+                counts_by_fold[f] = fns["score"](
+                    p, forest, test_mask[f:f + 1],
+                    **({} if timings is None else {"timings": timings}))
                 t_train += t1 - t0
                 t_test += time.time() - t1
             if journal is not None:
@@ -548,6 +569,10 @@ class SweepEngine:
                         axis=0, dtype=np.int32)
         result = self._result(counts, t_train / self.n_folds,
                               t_test / self.n_folds)
+        if timings is not None:
+            timings["fit_total_s"] = t_train
+            for k in _STAGE_WALLS:
+                timings[k] = round(timings[k], 4)
         self._count_done(1, n_trees)
         if journal is not None:
             journal.record_config(config_keys, result)
@@ -615,13 +640,31 @@ class SweepEngine:
         return trees.fit_forest(xs, ys, ws, kf, tree_chunk=tree_chunk,
                                 **p["fit_kw"])
 
-    def _score_fold(self, p, forest, test_mask):
+    def _stage_wall(self, timings, stage, t0):
+        """In timed mode, wait for the device, then add the wall since
+        ``t0`` to ``timings[stage]``; nothing otherwise."""
+        if timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timings[stage] += time.time() - t0
+
+    def _score_fold(self, p, forest, test_mask, timings=None):
         """One fold's per-project counts, int32 [1, P, 3] on the host: one
         host read a fold, so that the fold is journaled before the next
-        one runs (the staged path's resume granularity)."""
-        return confusion_by_project(
+        one runs (the staged path's resume granularity). ``timings``
+        (``run_config``'s timed mode) gets the device part and the host
+        read apart."""
+        t0 = time.time()
+        counts = confusion_by_project(
             p["y"], trees.predict(forest, p["xp"])[None], test_mask,
-            self.project_ids, len(self.project_names)).cpu().numpy()
+            self.project_ids, len(self.project_names))
+        self._stage_wall(timings, "score_s", t0)
+        t1 = time.time()
+        counts = counts.cpu().numpy()
+        if timings is not None:
+            timings["counts_to_host_s"] += time.time() - t1
+        return counts
 
     def _count_done(self, n_configs, n_trees):
         """Throughput counters after a config (or a plan's members)

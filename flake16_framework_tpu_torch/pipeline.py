@@ -26,14 +26,17 @@ import torch
 
 from flake16_framework_tpu_torch import config as cfg, obs, rng
 from flake16_framework_tpu_torch.constants import (
-    LOPO_SCORES_FILE, SCORES_FILE, SHAP_FILE, TESTS_FILE,
+    ET_DRAW, FEATURE_QUOTA, HIST_BINS, HIST_REFINE, LOPO_SCORES_FILE,
+    SCORES_FILE, SHAP_FILE, TESTS_FILE,
 )
 from flake16_framework_tpu_torch.data import load_tests, tests_to_arrays
 from flake16_framework_tpu_torch.device import default_devices, resolve
 from flake16_framework_tpu_torch.kernels.build import launch_counts
 from flake16_framework_tpu_torch.obs import costs
 from flake16_framework_tpu_torch.ops import trees, treeshap
-from flake16_framework_tpu_torch.ops.preprocess import fit_preprocess, transform
+from flake16_framework_tpu_torch.ops.preprocess import (
+    fit_preprocess, pca_impl_of, transform,
+)
 from flake16_framework_tpu_torch.ops.resample import resample
 from flake16_framework_tpu_torch.parallel.planner import plan_explain_grid
 from flake16_framework_tpu_torch.parallel.sweep import SweepEngine
@@ -84,11 +87,27 @@ def _load_ledger(out_file, warn_out=sys.stderr):
     return ledger
 
 
+def _arms_off_default():
+    """{variable: value} of each model-changing arm that is not at its
+    default, resolved by the readers the growers and the PCA call."""
+    arms = {"F16_HIST_BINS": (trees.hist_bins(), HIST_BINS),
+            "F16_HIST_REFINE": (trees.hist_refine(), HIST_REFINE),
+            "F16_ET_DRAW": (trees.et_draw(), ET_DRAW),
+            "F16_FEATURE_QUOTA": (trees.feature_quota(), FEATURE_QUOTA),
+            "F16_PCA_IMPL": (pca_impl_of(), "svd")}
+    return {name: got for name, (got, default) in arms.items()
+            if got != default}
+
+
 def _journal_fingerprint(engine, *, cv, max_depth, tree_overrides):
     """The run identity a journal must match to be replayed: everything
     that changes fold keys, fold membership, or per-fold counts (the JAX
     package's keys, so either package replays the other's journal). The
-    data CRCs are over the host arrays: int32 labels, float32 features."""
+    data CRCs are over the host arrays: int32 labels, float32 features.
+    Each model-changing arm away from its default is added under its
+    variable's name, so a run under other arms resets the journal rather
+    than replaying folds of another model; the JAX package's fingerprint
+    leaves the arms out, and a default run's stays equal to it."""
     return {
         "schema": rjournal.SCHEMA,
         "seed": engine.seed,
@@ -100,6 +119,7 @@ def _journal_fingerprint(engine, *, cv, max_depth, tree_overrides):
         "data": [list(engine.features.shape),
                  zlib.crc32(engine.labels_host.tobytes()),
                  zlib.crc32(engine.features.tobytes())],
+        **_arms_off_default(),
     }
 
 
@@ -139,9 +159,10 @@ def _write_timing_meta(out_file, amortized_configs, fused_configs):
 
 def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                  max_depth=48, tree_overrides=None, configs=None,
-                 progress_out=sys.stdout, cv="stratified", device=None,
-                 devices=None, fused=False, planner=False,
-                 dispatch_trees=None, dispatch_folds=None, profile_dir=None):
+                 checkpoint_every=12, progress_out=sys.stdout,
+                 cv="stratified", device=None, devices=None, fused=False,
+                 journal=True, planner=False, dispatch_trees=None,
+                 dispatch_folds=None, profile_dir=None):
     """Run the sweep over ``configs`` (key tuples, as the JAX package's
     ``write_scores`` takes them; default the whole grid) and pickle the
     scores. ``cv="lopo"`` runs leave-one-project-out CV; the default
@@ -165,13 +186,18 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     Chrome trace there (``obs.profiler_trace``; CUDA activity on a cuda
     run).
 
-    Crash tolerance: a write-ahead journal rides beside the pickle at
-    ``<out_file>.journal`` — fsync'd,
+    Crash tolerance: with ``journal=True`` (the default) a write-ahead
+    journal rides beside the pickle at ``<out_file>.journal`` — fsync'd,
     checksummed records at fold granularity. A killed run resumes exactly
     its unfinished (config, fold) pairs with the same keys, so the final
     pickle's scores equal an uninterrupted run's; the journal is deleted
     once the final pickle is on disk. A second live resumer fails fast
-    with ``resilience.JournalLocked``. Every config runs under the
+    with ``resilience.JournalLocked``. With the journal on, the pickle is
+    written once, when the run ends: the journal is the fsync'd resume
+    state, and a pickle every few configs would only repeat it. With
+    ``journal=False`` the timing sidecar and then the pickle are written
+    every ``checkpoint_every`` configs, as the JAX package does, so that a
+    killed run resumes from the last checkpoint. Every config runs under the
     dispatch guard; configs that exhaust their attempts are left out of
     the pickle, recorded in ``<out_file>.quarantine.json``, and
     ``QuarantinedConfigs`` (exit code 23) is raised once everything is
@@ -192,25 +218,35 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
                          dispatch_folds=dispatch_folds)
     device = engine.device
     ledger = _load_ledger(out_file)
-    fp = _journal_fingerprint(engine, cv=cv, max_depth=max_depth,
-                              tree_overrides=tree_overrides)
-    jr = rjournal.SweepJournal.open(rjournal.journal_path(out_file), fp,
-                                    plan=rinject.plan_from_env())
-    if jr.ledger or jr.partial:
-        progress_out.write(
-            f"journal: replayed {len(jr.ledger)} completed config(s) "
-            f"and {sum(len(v) for v in jr.partial.values())} partial "
-            f"fold(s) from {rjournal.journal_path(out_file)}\n")
-    # The journal wins where the two disagree: the pickle is written only
-    # when a run ends.
-    ledger.update(jr.ledger)
-    engine.journal = jr
+    jr = None
+    if journal:
+        fp = _journal_fingerprint(engine, cv=cv, max_depth=max_depth,
+                                  tree_overrides=tree_overrides)
+        jr = rjournal.SweepJournal.open(rjournal.journal_path(out_file), fp,
+                                        plan=rinject.plan_from_env())
+        if jr.ledger or jr.partial:
+            progress_out.write(
+                f"journal: replayed {len(jr.ledger)} completed config(s) "
+                f"and {sum(len(v) for v in jr.partial.values())} partial "
+                f"fold(s) from {rjournal.journal_path(out_file)}\n")
+        # The journal wins where the two disagree: with it on, the pickle
+        # is written only when a run ends.
+        ledger.update(jr.ledger)
+        engine.journal = jr
     t0 = time.time()
 
     def progress(i, total, keys, live_scores):
         progress_out.write(
             f"[{i}/{total}] {', '.join(keys)} ({time.time() - t0:.1f}s "
             f"elapsed)\n")
+        if jr is None and i % checkpoint_every == 0:
+            # Sidecar first, pickle second: the sidecar merges supersets,
+            # so a stamp for a config not yet in the pickle is harmless,
+            # while a pickle with combined or amortized clocks and no
+            # stamp is not. A kill between the two writes is safe.
+            _write_timing_meta(out_file, engine.amortized_configs,
+                               engine.fused_configs)
+            _dump(live_scores, out_file)
 
     obs.manifest_update(verb="scores", cv=cv, out_file=str(out_file),
                         fused=fused, planner=planner, seed=engine.seed)
@@ -224,7 +260,8 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     except BaseException:
         # The journal stays on disk (it is the resume state); its fd and
         # lock are released for the next run.
-        jr.close(remove=False)
+        if jr is not None:
+            jr.close(remove=False)
         raise
     for rec in engine.retries:
         if "salvaged" in rec:
@@ -234,12 +271,13 @@ def write_scores(tests_file=TESTS_FILE, out_file=None, *,
     _dump(scores, out_file)
     _write_timing_meta(out_file, engine.amortized_configs,
                        engine.fused_configs)
-    # The durable pickle supersedes the journal. Quarantined configs are
-    # absent from both, so the next run re-attempts exactly them.
-    jr.finalize()
-    progress_out.write(
-        f"journal: {jr.n_appends} appends in {jr.append_wall_s:.6f} s "
-        f"of {time.time() - t0:.3f} s\n")
+    if jr is not None:
+        # The durable pickle supersedes the journal. Quarantined configs
+        # are absent from both, so the next run re-attempts exactly them.
+        jr.finalize()
+        progress_out.write(
+            f"journal: {jr.n_appends} appends in {jr.append_wall_s:.6f} s "
+            f"of {time.time() - t0:.3f} s\n")
     obs.emit_memory_gauges()
     rquarantine.update_sidecar(rquarantine.sidecar_path(out_file),
                                engine.quarantined, completed=scores.keys())

@@ -48,18 +48,22 @@ class RestartBudgetExceeded(RuntimeError):
         self.history = history
 
 
-def supervise(argv, *, max_restarts=3, env=None, cwd=None, stdout=None,
-              stderr=None, warn_out=sys.stderr):
+def supervise(argv, *, max_restarts=3, env=None, cwd=None, backoff_s=0.0,
+              stdout=None, stderr=None, warn_out=sys.stderr,
+              strip_chaos_on_restart=True):
     """Run ``argv`` to completion, restarting signal deaths (see module
     docstring). Returns ``(rc, history)`` where ``rc`` is the final
     child's exit code (>= 0) and ``history`` the signal deaths absorbed
-    along the way. Raises RestartBudgetExceeded past the budget."""
+    along the way. Raises RestartBudgetExceeded past the budget.
+    ``backoff_s`` is the wait before each restart; with
+    ``strip_chaos_on_restart=False`` a restarted child keeps the
+    injection plan's process entries (they fire again)."""
     base_env = dict(os.environ if env is None else env)
     history = []
     attempt = 0
     while True:
         child_env = dict(base_env)
-        if attempt > 0:
+        if attempt > 0 and strip_chaos_on_restart:
             spec = child_env.get(inject.ENV_VAR, "")
             if spec:
                 stripped = inject.strip_process_entries(spec)
@@ -88,6 +92,8 @@ def supervise(argv, *, max_restarts=3, env=None, cwd=None, stdout=None,
             warn_out.write(
                 f"supervisor: child killed by signal {-rc}; restart "
                 f"{attempt}/{max_restarts} with resume\n")
+        if backoff_s:
+            time.sleep(backoff_s)
 
 
 def _dump_flight(base_env, warn_out):

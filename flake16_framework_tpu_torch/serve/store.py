@@ -9,7 +9,11 @@ the counterparts of the JAX package's compiled executables: on the card,
 copies the padded batch into the graph's static input, replays it and
 returns a clone of its output. A graph bakes its model's tensors in by
 address, so models of equal shapes share a signature (the warm
-manifest's keys) but not a graph. ``_prepare``'s reload (a new model
+manifest's keys) but not a graph. A graph also keeps the predict walk
+(``F16_PREDICT_IMPL``, ``F16_PREDICT_WINDOW``) it was captured with: a
+change of either after warm takes effect on new captures only (a model
+reloaded, or a bucket first called), and on a ``cpu`` device at the next
+call. ``_prepare``'s reload (a new model
 object for an id) drops that model's graphs; each is captured anew at its
 first call.
 
@@ -69,11 +73,16 @@ class _Prepared(NamedTuple):
     wmat: torch.Tensor
     shap_rows: tuple
     n_trees: int
+    walk_plans: dict
 
 
 def _predict_body(prep, x):
-    """The soft vote [bucket, 2] of a device batch x [bucket, F]."""
-    return trees.predict_proba(prep.forest, transform(x, prep.mu, prep.wmat))
+    """The soft vote [bucket, 2] of a device batch x [bucket, F], through
+    the walk ``F16_PREDICT_IMPL`` names. The windows walk's plan is kept
+    in ``prep.walk_plans``: the warm-up run before a capture makes it, so
+    the capture reads nothing from the device."""
+    return trees.predict_proba(prep.forest, transform(x, prep.mu, prep.wmat),
+                               plans=prep.walk_plans)
 
 
 def _shap_body(prep, x):
@@ -139,7 +148,7 @@ class ExecutableStore:
         prep = _Prepared(model, forest, model.mu.to(dev),
                          model.wmat.to(dev),
                          treeshap.graph_inputs(forest, len(model.cols)),
-                         forest.feature.shape[0])
+                         forest.feature.shape[0], {})
         self._prepared[model.model_id] = prep
         return prep
 

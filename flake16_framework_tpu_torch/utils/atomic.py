@@ -25,11 +25,14 @@ def _fsync_dir(dirname):
 
 
 @contextlib.contextmanager
-def atomic_write(path, mode="wb", **open_kw):
+def atomic_write(path, mode="wb", *, fsync=True, **open_kw):
     """Context manager yielding a file object; on a clean exit the payload
     is fsync'd and renamed onto ``path``. On any exception the temporary
     file is removed and ``path`` is untouched. ``mode`` is "wb" or "w"
-    (text; pass ``encoding=`` through ``open_kw``)."""
+    (text; pass ``encoding=`` through ``open_kw``). ``fsync=False`` keeps
+    the atomic rename but skips both fsyncs, for a large artifact that is
+    cheap to make again, where the caller trades durability for wall
+    time."""
     path = os.fspath(path)
     dirname = os.path.dirname(path) or "."
     fd, tmp = tempfile.mkstemp(
@@ -41,7 +44,8 @@ def atomic_write(path, mode="wb", **open_kw):
         with os.fdopen(fd, mode, **open_kw) as out:
             yield out
             out.flush()
-            os.fsync(out.fileno())
+            if fsync:
+                os.fsync(out.fileno())
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -49,7 +53,8 @@ def atomic_write(path, mode="wb", **open_kw):
         except OSError:
             pass
         raise
-    _fsync_dir(dirname)
+    if fsync:
+        _fsync_dir(dirname)
 
 
 def atomic_write_bytes(path, data):

@@ -41,8 +41,14 @@ def make_dataset(n_tests=2000, n_projects=26, nod_frac=0.06, od_frac=0.04,
     return feats, labels.astype(np.int32), project_ids.astype(np.int32)
 
 
-def make_tests_json(path=None, n_tests=2000, n_projects=26, seed=0):
-    """Write (or return) a reference-schema tests.json."""
+def make_tests_json(path=None, n_tests=2000, n_projects=26, seed=0,
+                    names=None):
+    """Write (or return) a reference-schema tests.json. ``names`` replaces
+    the synthetic ``projectNN`` keys (for example with the subject
+    registry's names, so that the figures verb's subject join works on
+    synthetic data)."""
+    if names is not None and len(names) != n_projects:
+        raise ValueError(f"{len(names)} names for {n_projects} projects")
     feats, labels, project_ids = make_dataset(
         n_tests=n_tests, n_projects=n_projects, seed=seed
     )
@@ -53,7 +59,7 @@ def make_tests_json(path=None, n_tests=2000, n_projects=26, seed=0):
         rows = np.flatnonzero(project_ids == pid)
         if rows.size == 0:
             continue
-        proj = f"project{pid:02d}"
+        proj = f"project{pid:02d}" if names is None else names[pid]
         tests_proj = {}
         for j, r in enumerate(rows):
             req_runs = int(rng.randint(1, 2500)) if labels[r] != NON_FLAKY else 0

@@ -478,3 +478,68 @@ def test_kill_drill_under_supervise(data, tmp_path):
     _same_scores(pickle.load(open(out, "rb")), ref)
     assert not os.path.exists(tjournal.journal_path(out))
     assert not os.path.exists(tjournal.lock_path(tjournal.journal_path(out)))
+
+
+# -- the model-changing arms in the fingerprint (the port only) ---------
+
+# (variable, a value off its default, what the reader resolves, the
+# default spelled out)
+ARMS = [("F16_HIST_BINS", "32", 32, "64"),
+        ("F16_HIST_REFINE", "edge", "edge", "exact"),
+        ("F16_ET_DRAW", "rank", "rank", "value"),
+        ("F16_FEATURE_QUOTA", "sklearn", "sklearn", "informative"),
+        ("F16_PCA_IMPL", "eigh", "eigh", "svd")]
+
+
+@pytest.fixture(scope="module")
+def small_engine(tmp_path_factory):
+    tj = str(tmp_path_factory.mktemp("arms") / "tests.json")
+    make_tests_json(tj, n_tests=60, n_projects=3, seed=1)
+    return SweepEngine(*tests_to_arrays(load_tests(tj)), max_depth=8,
+                       tree_overrides=TINY, device="cpu")
+
+
+def _fingerprint(engine):
+    return tpipe._journal_fingerprint(engine, cv="stratified", max_depth=8,
+                                      tree_overrides=TINY)
+
+
+@pytest.mark.parametrize("var,raw,value,default", ARMS,
+                         ids=[a[0] for a in ARMS])
+def test_each_arm_off_default_changes_the_fingerprint(
+        small_engine, monkeypatch, var, raw, value, default):
+    """An arm away from its default is added under its variable; at its
+    default, spelled out or unset, the fingerprint is the JAX package's
+    (``test_journal_fingerprint_matches_jax``)."""
+    for arm in ARMS:
+        monkeypatch.delenv(arm[0], raising=False)
+    base = _fingerprint(small_engine)
+    assert not set(base) & {arm[0] for arm in ARMS}
+    monkeypatch.setenv(var, default)
+    assert _fingerprint(small_engine) == base
+    monkeypatch.setenv(var, raw)
+    assert _fingerprint(small_engine) == {**base, var: value}
+
+
+def test_journal_under_other_arms_is_reset(small_engine, tmp_path,
+                                           monkeypatch):
+    """A journal written under ``F16_HIST_BINS=32`` is reset, not
+    replayed, when a default run opens it; one written by a default run
+    replays."""
+    path = str(tmp_path / "scores.pkl.journal")
+    keys = ("a",) * 5
+    monkeypatch.setenv("F16_HIST_BINS", "32")
+    with tjournal.SweepJournal.open(path, _fingerprint(small_engine),
+                                    warn_out=None) as jr:
+        _folds(jr, keys, n=2)
+    monkeypatch.delenv("F16_HIST_BINS")
+    jr = tjournal.SweepJournal.open(path, _fingerprint(small_engine),
+                                    warn_out=None)
+    assert jr.reset_reason == "fingerprint mismatch"
+    assert jr.ledger == {} and jr.partial == {}
+    _folds(jr, keys, n=1)
+    jr.close()
+    jr = tjournal.SweepJournal.open(path, _fingerprint(small_engine),
+                                    warn_out=None)
+    assert jr.reset_reason is None and set(jr.partial[keys]) == {0}
+    jr.close()

@@ -610,6 +610,38 @@ def test_serve_graph_replays_equal_eager_bodies(tmp_path):
 
 
 @pytest.mark.cuda
+def test_serve_graph_replays_the_windows_walk(tmp_path, monkeypatch):
+    """Under ``F16_PREDICT_IMPL=windows`` the store captures the windows
+    walk: the warm-up run makes its plan, so the capture reads nothing
+    from the device (a read would fail the capture). Each predict replay
+    equals the eager windows and gather bodies bitwise and runs no K2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from flake16_framework_tpu_torch.serve.store import ExecutableStore
+
+    monkeypatch.setenv("F16_PREDICT_IMPL", "windows")
+    registry, feats = _graph_registry(tmp_path)
+    store = ExecutableStore(registry)
+    rs = np.random.RandomState(1)
+    for model in registry.models():
+        store.warm(model, (8, 32))
+        assert list(store._prepare(model).walk_plans) == [128]
+        for bucket in (8, 32):
+            x = np.ascontiguousarray(
+                feats[rs.choice(len(feats), bucket)][:, list(model.cols)],
+                dtype=np.float32)
+            k2 = treeshap_unit.unit_shap.launches
+            got = store.call(model, "predict", x)
+            torch.cuda.synchronize()
+            assert treeshap_unit.unit_shap.launches == k2
+            windows = _eager(store, model, "predict", x)
+            monkeypatch.setenv("F16_PREDICT_IMPL", "gather")
+            gather = _eager(store, model, "predict", x)
+            monkeypatch.setenv("F16_PREDICT_IMPL", "windows")
+            assert torch.equal(got, windows) and torch.equal(got, gather)
+
+
+@pytest.mark.cuda
 def test_serve_graph_concurrent_replays(tmp_path):
     """Two threads replaying one (model, kind, bucket) graph with
     different batches each get their own answer (the graph's lock holds
