@@ -1,0 +1,10 @@
+"""The benchmark's CPU tests: run with ``python -m pytest port_bench/tests``
+from the root of the repository."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
