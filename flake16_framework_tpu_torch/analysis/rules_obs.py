@@ -6,7 +6,8 @@ package's ``analysis/rules_obs.py`` against the port's ``obs/schema.py``,
 - static (check_module): emitters must only speak the declared wire
   schema — an ``obs.event("kind", ...)`` whose literal kind is missing
   from schema.EVENT_FIELDS is drift that would otherwise show only
-  after a run produced a bad document (O102); span names follow the
+  after a run produced a bad document (O102); span names, and the names
+  of the profiler-only regions (``obs.region``), follow the
   ``stage.detail`` lowercase convention the report renderer sorts and
   columnizes (O103).
 - documents (check_docs / check_paths): validate emitted events.jsonl /
@@ -34,8 +35,8 @@ RULES = {r.id: r for r in (
              "obs.event() with a kind not declared in schema.EVENT_FIELDS"
              " — undeclared wire-schema drift"),
     RuleInfo("O103", WARNING,
-             "span name does not match the lowercase dotted convention"
-             " ([a-z0-9_.]+)"),
+             "span or region name does not match the lowercase dotted"
+             " convention ([a-z0-9_.]+)"),
     RuleInfo("O104", ERROR,
              "event kind emitted in code but absent from"
              " schema.EVENT_FIELDS, or declared there but never emitted"
@@ -121,14 +122,14 @@ def check_module(mod):
                     f"event kind {kind!r} is not declared in "
                     f"schema.EVENT_FIELDS (known: "
                     f"{sorted(schema.EVENT_FIELDS)})"))
-        elif node.func.attr == "span" and node.args \
+        elif node.func.attr in ("span", "region") and node.args \
                 and isinstance(node.args[0], ast.Constant) \
                 and isinstance(node.args[0].value, str):
             name = node.args[0].value
             if not _SPAN_NAME_RE.match(name):
                 findings.append(mod.finding(
                     "O103", RULES["O103"].severity, node,
-                    f"span name {name!r} does not match "
+                    f"{node.func.attr} name {name!r} does not match "
                     f"{_SPAN_NAME_RE.pattern!r}"))
     return findings
 

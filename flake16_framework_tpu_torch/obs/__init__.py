@@ -13,6 +13,17 @@ command line reads it at its entry): every call here is then a single
 SHAP verbs, the resilience layer and the serving code without a cost.
 The exporter is pull-based and costs nothing unless served; the witness
 is armed only by ``F16_LOCKWATCH``.
+
+A ``torch.profiler`` capture, whoever runs it (``profile=``,
+``F16_XPROF`` or a caller's own), shows the program's spans and its
+``region()`` stages (the grower's draws, K1, split scan and routing, the
+sweep's prep, resample and counts, the service's collect, handoff and
+dispatch legs) as ranges, on the clock of its kernels, telemetry on or
+off, on the threads whose calls it records. On the others, and on every
+thread under a ``profile_all_threads`` capture (which records all
+threads but tells none that it does), they are only in
+``thread_regions()``. A region never reaches the JSONL sink, so the sink
+holds the JAX package's spans only.
 """
 
 # The lock-order witness must arm BEFORE obs.core runs: core's
@@ -43,9 +54,11 @@ from flake16_framework_tpu_torch.obs.core import (  # noqa: E402, F401
     mint_trace,
     profiler_trace,
     record_device_manifest,
+    region,
     shutdown,
     span,
     start_heartbeat,
     stop_heartbeat,
+    thread_regions,
     xprof_trace,
 )

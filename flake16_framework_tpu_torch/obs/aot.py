@@ -331,8 +331,11 @@ class AotExecutableCache:
         graph = self._graph(owner, self.signature(args, kwargs), args,
                             kwargs)
         with graph.lock:
-            graph.x.copy_(torch.as_tensor(args[-1]))
-            graph.replay()
-            out = graph.out.clone()
+            with core.region("store.copy_in"):
+                graph.x.copy_(torch.as_tensor(args[-1]))
+            with core.region("store.replay"):
+                graph.replay()
+            with core.region("store.clone"):
+                out = graph.out.clone()
         build.add_launches(graph.launches)
         return out

@@ -23,12 +23,31 @@ a ``torch.profiler`` capture (CPU activity, and CUDA activity on a
 ``cuda`` run) written as a Chrome trace under DIR, with a ``profile``
 event; it runs whether telemetry is on or not. ``xprof_trace`` arms one
 such capture per (process, tag) from ``F16_XPROF``.
+
+Spans and regions on the profiler's clock: while any ``torch.profiler``
+capture runs in the process, whoever started it, every ``span()`` and
+every ``region()`` also opens a ``record_function`` range of its name
+(the span's key left out) for its extent, whether telemetry is on or
+not, so the capture shows the program's stages beside the runtime calls
+and kernels they launched. ``region()`` is for the port's own stages,
+which the JAX package's telemetry has no span for: it never writes to
+the JSONL sink. A capture's callbacks are per thread: on a thread it
+does not record (a service thread, when the capture was started on
+another), the span or region is kept instead in ``thread_regions()``'s
+log, its times read from ``time.time_ns()``, the clock the profiler
+stamps its events with. A capture made with ``profile_all_threads``
+records every thread but tells none that it does, so under it every span
+and region is logged and none is a range. With neither telemetry nor a
+capture on, both return the shared no-op object after a flag read or two
+(about 70 ns each), and call nothing in torch.
+
 ``record_device_manifest`` stamps the device facts (the JAX package's
 ``record_jax_manifest``, read from torch). The lock-order witness
 (``obs/lockwatch.py``) is armed before this module's locks are made.
 """
 
 import atexit
+import collections
 import json
 import os
 import random
@@ -66,6 +85,62 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+_modules = sys.modules
+# Spans and regions that closed while a capture ran, on threads it did
+# not record: (name, start ns, end ns, thread id), the newest kept.
+_thread_regions = collections.deque(maxlen=1 << 18)
+
+
+def capturing():
+    """Whether a ``torch.profiler`` capture runs in this process: torch's
+    own flag, read through ``sys.modules`` (telemetry never imports
+    torch)."""
+    mod = _modules.get("torch.autograd.profiler")
+    return mod is not None and mod._is_profiler_enabled
+
+
+def thread_regions():
+    """The spans and regions that closed while a capture ran, on a thread
+    whose calls the capture did not record, oldest first: [(name, start
+    ns, end ns, thread id)], on the profiler's clock (Unix-epoch ns).
+    Those on a recorded thread are ranges of the capture itself."""
+    return list(_thread_regions)
+
+
+class _Region:
+    """The profiler's side of a span or region: a ``record_function``
+    range where this thread's calls are recorded, else an entry of
+    ``thread_regions()``. Made only while a capture runs."""
+
+    __slots__ = ("name", "_range", "_t0")
+    wall_s = 0.0
+    cold = False
+
+    def __init__(self, name):
+        self.name = name
+        self._range = None
+
+    def add(self, **fields):
+        return self
+
+    def __enter__(self):
+        torch = sys.modules["torch"]
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        else:
+            _thread_regions.append((self.name, self._t0, time.time_ns(),
+                                    threading.get_ident()))
+        return False
 
 
 class _RunState:
@@ -246,10 +321,11 @@ class Span:
     """Timed region. ``cold`` is True on the first occurrence of
     (name, key) in this process. ``counts`` (a callable returning
     {field: int}, or None) is read at entry and exit, and the span
-    carries each field's change across it."""
+    carries each field's change across it. While a capture runs, the
+    span is also a range of the capture (``_Region``)."""
 
     __slots__ = ("_state", "name", "key", "fields", "t0", "wall_s", "cold",
-                 "_counts", "_counts0")
+                 "_counts", "_counts0", "_region")
 
     def __init__(self, state, name, key, fields, counts=None):
         self._state = state
@@ -260,6 +336,7 @@ class Span:
         self.cold = False
         self._counts = counts
         self._counts0 = None
+        self._region = None
 
     def add(self, **fields):
         self.fields.update(fields)
@@ -268,11 +345,16 @@ class Span:
     def __enter__(self):
         if self._counts is not None:
             self._counts0 = self._counts()
+        if capturing():
+            self._region = _Region(self.name).__enter__()
         self.t0 = time.time()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self.wall_s = time.time() - self.t0
+        if self._region is not None:
+            self._region.__exit__(exc_type, exc, tb)
+            self._region = None
         if self._counts is not None:
             self.fields.update({k: v - self._counts0[k]
                                 for k, v in self._counts().items()})
@@ -292,12 +374,21 @@ class Span:
 
 
 def span(name, key=None, counts=None, **fields):
-    """``with obs.span("scores.fit", key=family): ...`` — no-op when off
-    (``counts`` is then never called)."""
+    """``with obs.span("scores.fit", key=family): ...`` — with telemetry
+    off, only a capture's range (``counts`` is then never called), and
+    with no capture either a no-op."""
     state = _state
     if state is None:
-        return _NULL_SPAN
+        return _Region(name) if capturing() else _NULL_SPAN
     return Span(state, name, key, fields, counts)
+
+
+def region(name):
+    """``with obs.region("trees.k1"): ...`` — a stage the JAX package's
+    telemetry has no span for: a range of a running capture (or an entry
+    of ``thread_regions()``), never a JSONL event; a no-op when no
+    capture runs."""
+    return _Region(name) if capturing() else _NULL_SPAN
 
 
 # -- counters and gauges ------------------------------------------------

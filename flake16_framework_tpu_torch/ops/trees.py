@@ -54,8 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from flake16_framework_tpu_torch import rng
-from flake16_framework_tpu_torch import constants
+from flake16_framework_tpu_torch import constants, obs, rng
 from flake16_framework_tpu_torch.kernels.hist import cum_hists, max_window
 from flake16_framework_tpu_torch.obs import costs
 
@@ -406,7 +405,9 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
     value[:, 0, 1] = tot_wy0
     a = torch.ones(n_tree, dtype=torch.int64, device=dev)
     p = torch.zeros(n_tree, dtype=torch.int64, device=dev)
-    u_feat, u_thr = _node_uniforms(kg, max_nodes + bw, n_feat, random_splits)
+    with obs.region("trees.draws"):
+        u_feat, u_thr = _node_uniforms(kg, max_nodes + bw, n_feat,
+                                       random_splits)
     rank_draw = draw == "rank" or n_bins < 3
 
     if random_splits and not rank_draw:
@@ -419,135 +420,156 @@ def _grow_trees(x, bin_t, edges, y01, w, kg, *, random_splits, max_features,
         tree_edges = edges[None, :, None, :] if edges.dim() == 2 \
             else edges[tree_group[:, 0]].transpose(1, 2)
 
-    while bool((p < a).any()):                   # the one host sync a step
-        ids = p[:, None] + iota_w                            # [T, W]
-        rel = sample_node - p[:, None]                       # [T, N]
-        inb = (rel >= 0) & (rel < bw)
-        cw, cwy = cum_hists(rel.to(torch.int32), w, wy, bin_t, bw, n_bins)
+    # Each pass of the loop is one BFS step: K1, the split scan, the
+    # routing, and the host sync that asks whether a node is left.
+    more = bool((p < a).any())
+    while more:
+        with obs.region("trees.step"):
+            ids = p[:, None] + iota_w                        # [T, W]
+            rel = sample_node - p[:, None]                   # [T, N]
+            inb = (rel >= 0) & (rel < bw)
+            with obs.region("trees.k1"):
+                cw, cwy = cum_hists(rel.to(torch.int32), w, wy, bin_t, bw,
+                                    n_bins)
 
-        tot_w = cw[:, 0, :, -1]                              # [T, W]
-        tot_wy = cwy[:, 0, :, -1]
-        lw = cw[..., :-1]                                    # [T, F, W, B-1]
-        lwy = cwy[..., :-1]
-        rw = hist_subtract(tot_w[:, None, :, None], lw)
-        rwy = hist_subtract(tot_wy[:, None, :, None], lwy)
-        valid = (lw > 0) & (rw > 0)
-        nc = valid.any(-1)                                   # [T, F, W]
+            with obs.region("trees.split"):
+                tot_w = cw[:, 0, :, -1]                      # [T, W]
+                tot_wy = cwy[:, 0, :, -1]
+                lw = cw[..., :-1]                            # [T, F, W, B-1]
+                lwy = cwy[..., :-1]
+                rw = hist_subtract(tot_w[:, None, :, None], lw)
+                rwy = hist_subtract(tot_wy[:, None, :, None], lwy)
+                valid = (lw > 0) & (rw > 0)
+                nc = valid.any(-1)                           # [T, F, W]
 
-        if random_splits:
-            # Extra Trees: a threshold drawn uniformly in VALUE space over
-            # the node's occupied bin span, rounded down to its bin's
-            # lower boundary; or, under the rank draw, uniformly over the
-            # span's boundary indices.
-            prev = torch.cat([torch.zeros_like(cw[..., :1]), cw[..., :-1]],
-                             -1)
-            occ = (cw > prev).to(torch.uint8)                # [T, F, W, B]
-            lo = torch.argmax(occ, -1)
-            hi = n_bins - 1 - torch.argmax(torch.flip(occ, [-1]), -1)
-            u = u_thr[iota_t[:, None], ids].permute(0, 2, 1)  # [T, F, W]
-            if rank_draw:
-                # one product and a floor: no multiply-add to contract
-                span = torch.clamp(hi - lo, min=1)
-                bsel = lo + 1 + torch.floor(u * span).to(torch.int64)
-            else:
-                vmin = edge_at(full_edges, lo)
-                vmax = edge_at(full_edges, hi + 1)
-                thr_v = _fma(u, vmax - vmin, vmin)
-                cnt = (tree_edges < thr_v[..., None]).sum(-1)
-                bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
-            bm1 = torch.clamp(bsel - 1, 0, n_bins - 2)
-            lw_j = lw.gather(-1, bm1[..., None])[..., 0]
-            lwy_j = lwy.gather(-1, bm1[..., None])[..., 0]
-            rw_j = tot_w[:, None, :] - lw_j
-            ok_j = nc & (lw_j > 0) & (rw_j > 0)
-            score_j = _proxy_score(lw_j, lwy_j, rw_j,
-                                   tot_wy[:, None, :] - lwy_j, ok_j)
-            bound_j = bsel
-            thr_j = edge_at(edges, bm1)
-        else:
-            score = _proxy_score(lw, lwy, rw, rwy, valid)    # [T, F, W, B-1]
-            bb = torch.argmax(score, -1)                     # lowest boundary
-            score_j = score.gather(-1, bb[..., None])[..., 0]
-            bound_j = bb + 1
-            lw_j = lw.gather(-1, bb[..., None])[..., 0]
-            lwy_j = lwy.gather(-1, bb[..., None])[..., 0]
-            thr_j = edge_at(edges, bb)
+                if random_splits:
+                    # Extra Trees: a threshold drawn uniformly in VALUE
+                    # space over the node's occupied bin span, rounded
+                    # down to its bin's lower boundary; or, under the
+                    # rank draw, uniformly over the span's boundary
+                    # indices.
+                    prev = torch.cat([torch.zeros_like(cw[..., :1]),
+                                      cw[..., :-1]], -1)
+                    occ = (cw > prev).to(torch.uint8)        # [T, F, W, B]
+                    lo = torch.argmax(occ, -1)
+                    hi = n_bins - 1 - torch.argmax(torch.flip(occ, [-1]), -1)
+                    u = u_thr[iota_t[:, None], ids].permute(0, 2, 1)
+                    if rank_draw:
+                        # one product and a floor: no multiply-add to
+                        # contract
+                        span = torch.clamp(hi - lo, min=1)
+                        bsel = lo + 1 + torch.floor(u * span).to(torch.int64)
+                    else:
+                        vmin = edge_at(full_edges, lo)
+                        vmax = edge_at(full_edges, hi + 1)
+                        thr_v = _fma(u, vmax - vmin, vmin)
+                        cnt = (tree_edges < thr_v[..., None]).sum(-1)
+                        bsel = torch.minimum(torch.maximum(cnt, lo + 1), hi)
+                    bm1 = torch.clamp(bsel - 1, 0, n_bins - 2)
+                    lw_j = lw.gather(-1, bm1[..., None])[..., 0]
+                    lwy_j = lwy.gather(-1, bm1[..., None])[..., 0]
+                    rw_j = tot_w[:, None, :] - lw_j
+                    ok_j = nc & (lw_j > 0) & (rw_j > 0)
+                    score_j = _proxy_score(lw_j, lwy_j, rw_j,
+                                           tot_wy[:, None, :] - lwy_j, ok_j)
+                    bound_j = bsel
+                    thr_j = edge_at(edges, bm1)
+                else:
+                    # [T, F, W, B-1]; argmax: the lowest boundary
+                    score = _proxy_score(lw, lwy, rw, rwy, valid)
+                    bb = torch.argmax(score, -1)
+                    score_j = score.gather(-1, bb[..., None])[..., 0]
+                    bound_j = bb + 1
+                    lw_j = lw.gather(-1, bb[..., None])[..., 0]
+                    lwy_j = lwy.gather(-1, bb[..., None])[..., 0]
+                    thr_j = edge_at(edges, bb)
 
-        # ---- feature choice (sklearn's random feature draw) --------------
-        u_f = u_feat[iota_t[:, None], ids]                   # [T, W, F]
-        sel = _select_features(nc.permute(0, 2, 1), u_f, max_features,
-                               quota)
-        score_j = torch.where(sel.permute(0, 2, 1), score_j,
-                              torch.full_like(score_j, -torch.inf))
-        best_f = torch.argmax(score_j, 1)                    # [T, W]
-        best_score = score_j.gather(1, best_f[:, None])[:, 0]
+                # ---- feature choice (sklearn's random feature draw) -------
+                u_f = u_feat[iota_t[:, None], ids]           # [T, W, F]
+                sel = _select_features(nc.permute(0, 2, 1), u_f,
+                                       max_features, quota)
+                score_j = torch.where(sel.permute(0, 2, 1), score_j,
+                                      torch.full_like(score_j, -torch.inf))
+                best_f = torch.argmax(score_j, 1)            # [T, W]
+                best_score = score_j.gather(1, best_f[:, None])[:, 0]
 
-        def pick_f(t):                                       # [T,F,W]->[T,W]
-            return t.gather(1, best_f[:, None])[:, 0]
+                def pick_f(t):                               # [T,F,W]->[T,W]
+                    return t.gather(1, best_f[:, None])[:, 0]
 
-        thr_node = pick_f(thr_j)
-        bound_n = pick_f(bound_j)
-        lw_b = pick_f(lw_j)
-        lwy_b = pick_f(lwy_j)
+                thr_node = pick_f(thr_j)
+                bound_n = pick_f(bound_j)
+                lw_b = pick_f(lw_j)
+                lwy_b = pick_f(lwy_j)
 
-        # ---- split decision ---------------------------------------------
-        present = iota_w[None, :] < (a - p)[:, None]
-        dep = depth.gather(1, ids)
-        impure = (tot_wy > 0) & (tot_w - tot_wy > 0)
-        can_split = ((best_score > -torch.inf) & impure & present
-                     & (dep < max_depth))
-        rank = _exclusive_cumsum(can_split.to(torch.int64), 1)
-        left_g = a[:, None] + 2 * rank
-        right_g = left_g + 1
-        can_split = can_split & (right_g < max_nodes)
-        k_splits = can_split.sum(1)
+                # ---- split decision ----------------------------------------
+                present = iota_w[None, :] < (a - p)[:, None]
+                dep = depth.gather(1, ids)
+                impure = (tot_wy > 0) & (tot_w - tot_wy > 0)
+                can_split = ((best_score > -torch.inf) & impure & present
+                             & (dep < max_depth))
+                rank = _exclusive_cumsum(can_split.to(torch.int64), 1)
+                left_g = a[:, None] + 2 * rank
+                right_g = left_g + 1
+                can_split = can_split & (right_g < max_nodes)
+                k_splits = can_split.sum(1)
 
-        # ---- per-sample routing -----------------------------------------
-        rs = torch.clamp(rel, 0, bw - 1)
-        can_mine = inb & can_split.gather(1, rs)
-        rank_mine = rank.gather(1, rs)
-        bf_mine = best_f.gather(1, rs)                       # [T, N]
-        go_left = at_group(bin_t, bf_mine) < bound_n.gather(1, rs)
+            with obs.region("trees.route"):
+                # ---- per-sample routing ------------------------------------
+                rs = torch.clamp(rel, 0, bw - 1)
+                can_mine = inb & can_split.gather(1, rs)
+                rank_mine = rank.gather(1, rs)
+                bf_mine = best_f.gather(1, rs)               # [T, N]
+                go_left = at_group(bin_t, bf_mine) < bound_n.gather(1, rs)
 
-        if not random_splits and refine == "exact":
-            # Sharpen each winner to the exact sklearn midpoint between
-            # the closest member values either side of the chosen edge;
-            # routing is unchanged, only the stored threshold moves.
-            xv = at_group(xt, bf_mine)
-            inf = torch.full_like(xv, torch.inf)
-            m_l = torch.full((n_tree, bw), -torch.inf, dtype=x.dtype,
-                             device=dev).scatter_reduce_(
-                1, rs, torch.where(can_mine & go_left, xv, -inf), "amax")
-            m_r = torch.full((n_tree, bw), torch.inf, dtype=x.dtype,
-                             device=dev).scatter_reduce_(
-                1, rs, torch.where(can_mine & ~go_left, xv, inf), "amin")
-            mid = (m_l + m_r) * 0.5
-            thr_ref = torch.where(mid >= m_r, m_l, mid)
-            ok_ref = torch.isfinite(m_l) & torch.isfinite(m_r) & can_split
-            thr_node = torch.where(ok_ref, thr_ref, thr_node)
+                if not random_splits and refine == "exact":
+                    # Sharpen each winner to the exact sklearn midpoint
+                    # between the closest member values either side of
+                    # the chosen edge; routing is unchanged, only the
+                    # stored threshold moves.
+                    xv = at_group(xt, bf_mine)
+                    inf = torch.full_like(xv, torch.inf)
+                    m_l = torch.full((n_tree, bw), -torch.inf, dtype=x.dtype,
+                                     device=dev).scatter_reduce_(
+                        1, rs, torch.where(can_mine & go_left, xv, -inf),
+                        "amax")
+                    m_r = torch.full((n_tree, bw), torch.inf, dtype=x.dtype,
+                                     device=dev).scatter_reduce_(
+                        1, rs, torch.where(can_mine & ~go_left, xv, inf),
+                        "amin")
+                    mid = (m_l + m_r) * 0.5
+                    thr_ref = torch.where(mid >= m_r, m_l, mid)
+                    ok_ref = (torch.isfinite(m_l) & torch.isfinite(m_r)
+                              & can_split)
+                    thr_node = torch.where(ok_ref, thr_ref, thr_node)
 
-        minus1 = torch.full_like(left_g, -1)
-        _window_update(feature, p, torch.where(can_split, best_f, minus1),
-                       can_split)
-        _window_update(threshold, p, thr_node, can_split)
-        _window_update(left, p, torch.where(can_split, left_g, minus1),
-                       can_split)
-        _window_update(right, p, torch.where(can_split, right_g, minus1),
-                       can_split)
+                minus1 = torch.full_like(left_g, -1)
+                _window_update(feature, p,
+                               torch.where(can_split, best_f, minus1),
+                               can_split)
+                _window_update(threshold, p, thr_node, can_split)
+                _window_update(left, p,
+                               torch.where(can_split, left_g, minus1),
+                               can_split)
+                _window_update(right, p,
+                               torch.where(can_split, right_g, minus1),
+                               can_split)
 
-        # ---- child covers + depth, written at creation ------------------
-        child_vals, child_ok, j_safe = _emit_children(
-            can_split, lw_b, lwy_b, tot_w, tot_wy)
-        _window_update(value, a, child_vals, child_ok)
-        _window_update(depth, a, dep.gather(1, j_safe) + 1, child_ok)
+                # ---- child covers + depth, written at creation -------------
+                child_vals, child_ok, j_safe = _emit_children(
+                    can_split, lw_b, lwy_b, tot_w, tot_wy)
+                _window_update(value, a, child_vals, child_ok)
+                _window_update(depth, a, dep.gather(1, j_safe) + 1, child_ok)
 
-        child_mine = (a[:, None] + 2 * rank_mine
-                      + torch.where(go_left, 0, 1))
-        sample_node = torch.where(
-            inb & can_mine, child_mine,
-            torch.where(inb, torch.full_like(sample_node, -1), sample_node))
-        p = torch.minimum(p + bw, a)
-        a = a + 2 * k_splits
+                child_mine = (a[:, None] + 2 * rank_mine
+                              + torch.where(go_left, 0, 1))
+                sample_node = torch.where(
+                    inb & can_mine, child_mine,
+                    torch.where(inb, torch.full_like(sample_node, -1),
+                                sample_node))
+                p = torch.minimum(p + bw, a)
+                a = a + 2 * k_splits
+            with obs.region("trees.sync"):
+                more = bool((p < a).any())       # the one host sync a step
 
     m = max_nodes
     return (feature[:, :m], threshold[:, :m], left[:, :m], right[:, :m],
@@ -634,10 +656,11 @@ def fit_folds_hist(x, y, w, keys, *, edges, n_trees, bootstrap,
     w = w.to(x.dtype)
     bin_t = bin_indices(x, edges).transpose(1, 2).to(
         torch.uint8).contiguous()                            # [G, F, N]
-    kk = rng.split(rng.split(keys, n_trees))                 # [G, T, 2, 2]
-    kb, kg = kk[..., 0, :], kk[..., 1, :]
-    wt = bootstrap_weights(w, kb) if bootstrap \
-        else w[:, None, :].expand(n_fold, n_trees, n)
+    with obs.region("trees.draws"):
+        kk = rng.split(rng.split(keys, n_trees))             # [G, T, 2, 2]
+        kb, kg = kk[..., 0, :], kk[..., 1, :]
+        wt = bootstrap_weights(w, kb) if bootstrap \
+            else w[:, None, :].expand(n_fold, n_trees, n)
     parts = []
     for gs, ts in _batches(n_fold, n_trees, tree_chunk, fold_chunk):
         wb = wt[gs, ts]
@@ -1200,10 +1223,12 @@ def predict_batch(forest, x):
     row g equal to ``predict`` of fold g's forest. The windows walk plans
     over the whole batch (the widest depth span of each window)."""
     n_fold, n_tree = forest.feature.shape[:2]
-    flat = Forest(*(f.reshape(n_fold * n_tree, *f.shape[2:])
-                    for f in forest[:-1]), forest.max_depth)
-    p = _tree_mean(_leaf_probs(flat, x).view(n_fold, n_tree, x.shape[0], 2))
-    return p[..., 1] > p[..., 0]
+    with obs.region("trees.predict"):
+        flat = Forest(*(f.reshape(n_fold * n_tree, *f.shape[2:])
+                        for f in forest[:-1]), forest.max_depth)
+        p = _tree_mean(_leaf_probs(flat, x).view(n_fold, n_tree, x.shape[0],
+                                                 2))
+        return p[..., 1] > p[..., 0]
 
 
 # Cost attribution (obs/costs.py): the grower and predict entry points,

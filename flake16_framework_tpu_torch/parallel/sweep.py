@@ -453,13 +453,14 @@ class SweepEngine:
         fl_label, cols, prep_code, bal_code, _ = cfg.resolve_config(
             config_keys)
         spec = self._spec(config_keys[4])
-        x = card.features[:, list(cols)]
-        cap = 2 * x.shape[0]  # SMOTE at worst doubles the training set
-        y = card.labels_raw == fl_label
-        mu, wmat = fit_preprocess(x, prep_code)
-        xp = transform(x, mu, wmat)
         use_hist = trees.hist_tier_default(spec.n_trees, self.grower)
-        edges = trees.quantile_edges(xp) if use_hist else None
+        with obs.region("sweep.prep"):
+            x = card.features[:, list(cols)]
+            cap = 2 * x.shape[0]  # SMOTE at worst doubles the training set
+            y = card.labels_raw == fl_label
+            mu, wmat = fit_preprocess(x, prep_code)
+            xp = transform(x, mu, wmat)
+            edges = trees.quantile_edges(xp) if use_hist else None
         fit_kw = dict(n_trees=spec.n_trees, bootstrap=spec.bootstrap,
                       random_splits=spec.random_splits,
                       sqrt_features=spec.sqrt_features,
@@ -631,8 +632,9 @@ class SweepEngine:
         matrix ``p`` (``_prepare``) under the fold's training mask, then
         fit the fold's forest."""
         kb, kf = rng.split(fold_key).unbind(0)
-        xs, ys, ws = resample(p["xp"], p["y"], train_mask, p["bal_code"],
-                              kb, p["cap"])
+        with obs.region("sweep.resample"):
+            xs, ys, ws = resample(p["xp"], p["y"], train_mask, p["bal_code"],
+                                  kb, p["cap"])
         if p["use_hist"]:
             return trees.fit_forest_hist(xs, ys, ws, kf, edges=p["edges"],
                                          tree_chunk=tree_chunk,
@@ -695,10 +697,11 @@ class SweepEngine:
             train_mask = card.masks[keys[0]][0]
             for f in range(self.n_folds):
                 kb, kf = rng.split(fold_keys[f]).unbind(0)
-                for out, t in zip((xs, ys, ws), resample(
-                        p["xp"], p["y"], train_mask[f], p["bal_code"], kb,
-                        p["cap"])):
-                    out.append(t)
+                with obs.region("sweep.resample"):
+                    for out, t in zip((xs, ys, ws), resample(
+                            p["xp"], p["y"], train_mask[f], p["bal_code"],
+                            kb, p["cap"])):
+                        out.append(t)
                 kfs.append(kf)
         p = preps[0]
         tree_chunk, fold_chunk = self._batch_bounds(
@@ -724,10 +727,11 @@ class SweepEngine:
                                         forest.max_depth)
             else:
                 forest_c = forest
-            out.append(confusion_by_fold(
-                p["y"], trees.predict_batch(forest_c, p["xp"]),
-                card.masks[keys[0]][1], card.project_ids,
-                len(self.project_names)))
+            pred = trees.predict_batch(forest_c, p["xp"])
+            with obs.region("sweep.counts"):
+                out.append(confusion_by_fold(
+                    p["y"], pred, card.masks[keys[0]][1], card.project_ids,
+                    len(self.project_names)))
         return out
 
     def _fit_count_folds(self, config_keys, card=None, **grow_kw):
@@ -738,8 +742,9 @@ class SweepEngine:
         equal to the default path's count of that fold."""
         card = card or self._cards[0]
         forest, preps = self._fit_groups([config_keys], card, **grow_kw)
-        return self._count_groups([config_keys], card, forest,
-                                  preps)[0].cpu().numpy()
+        counts = self._count_groups([config_keys], card, forest, preps)[0]
+        with obs.region("sweep.counts"):
+            return counts.cpu().numpy()
 
     def _shards(self, n_slots, width):
         """The contiguous shards of ``width`` slots, one a card (the JAX

@@ -12,7 +12,19 @@ abandons quarantines the model. There is no fallback device or arm.
 With an SLO monitor, every completed or failed request is observed and
 the burn evaluated once a batch; the dispatch span, the per-request spans
 of sampled requests, the request counter and the queue, inflight and
-latency gauges go to the telemetry (no-ops unless it is on).
+latency gauges go to the telemetry (no-ops unless it is on, and the
+gauges' values are then not read at all).
+
+Always counted, under the inflight lock: the requests answered and
+each answered request's two waits before its dispatch, in the queue
+(``submit`` to the collector's take) and in the handoff (the take to its
+dispatch's start). Under a ``torch.profiler`` capture, the collector's
+wait for a batch (``serve.collect``), its handoff (``serve.handoff``),
+each dispatch (the ``serve.dispatch`` span) and the dispatch's legs
+(``serve.pad``, the store's ``store.copy_in``, ``store.replay`` and
+``store.clone``, ``serve.copy_out``, ``serve.complete``) are ranges
+(``obs.region``; see ``obs/core.py`` for threads the capture does not
+record).
 
 The ONLY device->host transfer in this module is the single copy of a
 completed microbatch's result — one crossing amortized over the batch's
@@ -29,6 +41,14 @@ import torch
 from flake16_framework_tpu_torch import obs
 from flake16_framework_tpu_torch.resilience import guard as _guard
 from flake16_framework_tpu_torch.serve.queue import ServeError
+
+
+class _Batch(list):
+    """A coalesced batch as the collector hands it off: its requests, and
+    ``t_take``, when the collector took them from the queue
+    (``time.perf_counter``)."""
+
+    __slots__ = ("t_take",)
 
 
 class Microbatcher:
@@ -54,6 +74,11 @@ class Microbatcher:
         self._quarantine_lock = threading.Lock()
         self.inflight = 0  # dispatches currently inside _run_batch
         self._inflight_lock = threading.Lock()
+        # Under _inflight_lock: requests answered and their summed
+        # waits (s).
+        self.answered = 0
+        self.queue_wait_s = 0.0
+        self.handoff_wait_s = 0.0
         self._handoff = _stdqueue.Queue(maxsize=int(max_inflight))
         self._stop = threading.Event()
         self._threads = []
@@ -106,9 +131,13 @@ class Microbatcher:
 
     def _collect(self):
         while not self._stop.is_set():
-            batch = self.requests.take_batch(self.max_rows, wait_s=0.05)
+            with obs.region("serve.collect"):
+                batch = self.requests.take_batch(self.max_rows, wait_s=0.05)
             if batch:
-                self._handoff.put(batch)
+                batch = _Batch(batch)
+                batch.t_take = time.perf_counter()
+                with obs.region("serve.handoff"):
+                    self._handoff.put(batch)
 
     def _dispatch_loop(self):
         if self.store.device.type == "cuda":
@@ -147,9 +176,19 @@ class Microbatcher:
                 self.monitor.observe(error=True)
             self.monitor.evaluate()
 
+    def wait_stats(self):
+        """Where the answered requests waited before their dispatch, mean
+        ms over them (None before the first answer): in the queue
+        (``queue_wait_ms``) and in the handoff (``handoff_wait_ms``)."""
+        with self._inflight_lock:
+            n, qw, hw = self.answered, self.queue_wait_s, self.handoff_wait_s
+        return {"queue_wait_ms": 1e3 * qw / n if n else None,
+                "handoff_wait_ms": 1e3 * hw / n if n else None}
+
     def _run_batch(self, batch):
         t_start = time.perf_counter()
         wall_start = time.time()
+        t_take = getattr(batch, "t_take", t_start)
         req0 = batch[0]
         model = self.store.registry.get(req0.model_id)
         if model is None:
@@ -162,25 +201,28 @@ class Microbatcher:
                 f"[{self.quarantined[req0.model_id]['fault_class']}]"))
             return
 
-        rows = sum(r.n for r in batch)
-        bucket = self._bucket_for(rows)
-        xpad = np.zeros((bucket, len(model.cols)), dtype=np.float32)
-        off = 0
-        for r in batch:
-            xpad[off:off + r.n] = r.x
-            off += r.n
+        with obs.region("serve.pad"):
+            rows = sum(r.n for r in batch)
+            bucket = self._bucket_for(rows)
+            xpad = np.zeros((bucket, len(model.cols)), dtype=np.float32)
+            off = 0
+            for r in batch:
+                xpad[off:off + r.n] = r.x
+                off += r.n
 
         def thunk():
             return self.store.call(model, req0.kind, xpad)
 
-        # Batch fan-in as span links: the coalesced requests' trace ids
-        # ride the dispatch span, joining each sampled request to the
-        # microbatch that carried it.
-        links = [r.trace["trace_id"] for r in batch if r.trace]
-        span_fields = {"rows": rows, "bucket": bucket,
-                       "coalesced": len(batch)}
-        if links:
-            span_fields["links"] = links
+        span_fields = {}
+        if obs.enabled():
+            # Batch fan-in as span links: the coalesced requests' trace
+            # ids ride the dispatch span, joining each sampled request to
+            # the microbatch that carried it.
+            links = [r.trace["trace_id"] for r in batch if r.trace]
+            span_fields = {"rows": rows, "bucket": bucket,
+                           "coalesced": len(batch)}
+            if links:
+                span_fields["links"] = links
         try:
             with obs.span("serve.dispatch",
                           key=f"{req0.model_id}/{req0.kind}",
@@ -201,9 +243,23 @@ class Microbatcher:
             self._fail_batch(batch, e)
             return
 
-        # The one device->host crossing of a microbatch.
-        host = out.cpu().numpy()  # f16lint: disable=J601
+        with obs.region("serve.copy_out"):
+            # The one device->host crossing of a microbatch.
+            host = out.cpu().numpy()  # f16lint: disable=J601
         t_done = time.perf_counter()
+        with obs.region("serve.complete"):
+            self._complete(batch, host, t_start, t_take, t_done, wall_start)
+
+    def _complete(self, batch, host, t_start, t_take, t_done, wall_start):
+        """Answer a dispatched batch's requests from ``host``: their
+        futures, the latency ring, the monitor, the counters, and the
+        per-request spans and gauges when telemetry is on. The counters
+        take the batch before its callers see their answers."""
+        queue_wait = sum(t_take - r.t_submit for r in batch)
+        with self._inflight_lock:
+            self.answered += len(batch)
+            self.queue_wait_s += queue_wait
+            self.handoff_wait_s += len(batch) * (t_start - t_take)
         off = 0
         for r in batch:
             r._complete(host[off:off + r.n].copy())
@@ -230,12 +286,13 @@ class Microbatcher:
                           cold=False,
                           model_id=r.model_id, req_kind=r.kind, rows=r.n,
                           coalesced=len(batch), **tctx)
-        obs.counter_add("serve.requests", len(batch))
-        obs.gauge("serve.queue_depth", self.requests.depth())
-        obs.gauge("serve.inflight", self.inflight)
-        if self.stats is not None:
-            snap = self.stats.snapshot()
-            obs.gauge("serve.p50_ms", snap["p50_ms"])
-            obs.gauge("serve.p99_ms", snap["p99_ms"])
+        if obs.enabled():
+            obs.counter_add("serve.requests", len(batch))
+            obs.gauge("serve.queue_depth", self.requests.depth())
+            obs.gauge("serve.inflight", self.inflight)
+            if self.stats is not None:
+                snap = self.stats.snapshot()
+                obs.gauge("serve.p50_ms", snap["p50_ms"])
+                obs.gauge("serve.p99_ms", snap["p99_ms"])
         if self.monitor is not None:
             self.monitor.evaluate()

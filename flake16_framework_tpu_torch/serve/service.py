@@ -328,6 +328,11 @@ class ScoringService:
         return self.submit(model_id, x, kind=kind).result(timeout)
 
     def stats(self):
+        """The service's state: models, requests answered and the latency
+        ring's p50/p99, queue depth, quarantined models, and where an
+        answered request waited before its dispatch, mean ms
+        (``Microbatcher.wait_stats``): in the queue (``queue_wait_ms``)
+        and in the handoff to a dispatcher (``handoff_wait_ms``)."""
         snap = self.latency.snapshot()
         return {
             "models": self.registry.ids(),
@@ -336,4 +341,5 @@ class ScoringService:
             "p99_ms": snap["p99_ms"],
             "queue_depth": self.requests.depth(),
             "quarantined": dict(self.batcher.quarantined),
+            **self.batcher.wait_stats(),
         }
